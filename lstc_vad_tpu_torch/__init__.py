@@ -1,0 +1,34 @@
+"""lstc_vad_tpu_torch — the PyTorch + CUDA port of ``lstc_vad_tpu``.
+
+A second package beside the JAX one, which stays the reference every part of
+this package is held against (tests/test_torch_*.py).  It imports torch and
+numpy, and nothing of JAX or of ``lstc_vad_tpu``.
+
+What is ported so far is the evaluation forward and the frame-level AUC:
+
+- ``models``      — encoder (STN/LTN) and Regressor/Classifier heads as
+                    ``nn.Module``s, with the reference's state_dict key layout.
+- ``ops``         — attention: the plain PyTorch version and a CUDA kernel
+                    written for Hopper (``csrc/attention.cu``), built with
+                    ``nvcc`` at first use.
+- ``ckpt``        — JAX param trees and the reference's ``.ckpt`` files into
+                    this package's state_dicts.
+- ``evaluation``  — part chunking, the batched scorers, the eval drivers and
+                    the metric zoo.
+- ``data``        — annotation parsers, the HDF5 feature store and the test
+                    split.
+
+Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
+"""
+
+__version__ = "0.1.0"
+
+from .config import (  # noqa: F401
+    DataConfig,
+    EncoderConfig,
+    HeadConfig,
+    TrainConfig,
+    preset,
+    replace,
+)
+from .device import resolve_device  # noqa: F401

@@ -1,0 +1,37 @@
+"""HDF5 feature store: pre-extracted I3D clip features keyed by "<video>.npy".
+
+The evaluation side of lstc_vad_tpu/data/feature_store.py::FeatureStore:
+features are read per video on ``get(key)`` (the reference's
+``h5[key + '.npy']`` convention, utils/load_dataset.py:285-286).  ``h5py`` is
+imported when a store opens, so importing the package does not need it.
+The tenCrop layout and ``CropView`` are not ported yet (ROADMAP A14).
+"""
+
+from __future__ import annotations
+
+import threading
+
+import numpy as np
+
+
+class FeatureStore:
+    """HDF5-backed feature store.  Keys are stored WITHOUT the ".npy"
+    suffix; ``get`` appends it."""
+
+    def __init__(self, h5_path: str):
+        import h5py
+
+        self._lock = threading.Lock()
+        self._h5 = h5py.File(h5_path, "r")
+
+    def get(self, key: str) -> np.ndarray:
+        with self._lock:  # h5py handles are not thread-safe
+            return self._h5[key + ".npy"][:]
+
+    def n_clips(self, key: str) -> int:
+        """Clip count from h5 metadata only — no feature read."""
+        with self._lock:
+            return self._h5[key + ".npy"].shape[0]
+
+    def close(self):
+        self._h5.close()

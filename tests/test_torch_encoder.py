@@ -1,0 +1,158 @@
+"""The PyTorch encoder and heads against the JAX package's.
+
+Weights are drawn by the JAX package, mapped by
+lstc_vad_tpu_torch/ckpt/interop.py and loaded with ``strict=True``; the same
+numpy input goes through ``Encoder.apply`` / ``head.apply`` and through the
+port, dropout off.  Tolerance rtol 2e-4 / atol 2e-5, as
+tests/test_encoder_parity.py holds the JAX encoder to its torch oracle.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from lstc_vad_tpu.config import EncoderConfig as JaxEncoderConfig
+from lstc_vad_tpu.models import Encoder as JaxEncoder
+from lstc_vad_tpu.models import make_head as jax_make_head
+from lstc_vad_tpu.models import rpe as jax_rpe
+from lstc_vad_tpu_torch.ckpt.interop import (encoder_state_dict_from_jax,
+                                             head_state_dict_from_jax)
+from lstc_vad_tpu_torch.config import EncoderConfig
+from lstc_vad_tpu_torch.models import Encoder, make_head, rpe
+
+SMALL = dict(d_model=64, d_inner=96, n_head=4, d_k=16, d_v=16, n_layers=2)
+LTN = dict(mha_layernorm=True, ffn_layernorm=True, relative_pe=True,
+           window_size=4)
+
+# (config kwargs, input tokens): every encoder shape the presets use, cut
+# to small widths
+CONFIGS = {
+    "stn_weight_init_L17": (dict(ffn_layernorm=True, weight_init=True), 16),
+    "ltn_full_window_L49": (dict(window_depth=3, **LTN), 48),
+    "ltn_short_tail_L33": (dict(window_depth=3, **LTN), 32),
+    "ubnormal_like_L81": (dict(window_depth=5, **LTN), 80),
+    "rpe_2d": (dict(ffn_layernorm=True, relative_pe_2d=True,
+                    window_size=4), 16),
+    "cls_learned_pe_input_ln": (dict(cls_learned=True, position_encoding=True,
+                                     max_position_tokens=17,
+                                     input_layernorm=True,
+                                     ffn_layernorm=True), 16),
+    "ffn_need_false": (dict(ffn_need=False), 16),
+}
+
+
+def port_config(jcfg: JaxEncoderConfig, **kw) -> EncoderConfig:
+    """The port's twin of a JAX EncoderConfig (attn_impl takes the port's
+    own values)."""
+    fields = {f.name: getattr(jcfg, f.name)
+              for f in dataclasses.fields(JaxEncoderConfig)}
+    fields["attn_impl"] = "auto"
+    fields.update(kw)
+    return EncoderConfig(**fields)
+
+
+def jax_and_port_encoder(jcfg: JaxEncoderConfig, x: np.ndarray, seed=0):
+    model = JaxEncoder(jcfg)
+    params = jax.tree.map(np.asarray,
+                          model.init(jax.random.PRNGKey(seed), x))["params"]
+    port = Encoder(port_config(jcfg), device="cpu")
+    port.load_state_dict(encoder_state_dict_from_jax(params, jcfg),
+                         strict=True)
+    return model, params, port.eval()
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_encoder_matches_jax(name):
+    kw, n_tok = CONFIGS[name]
+    jcfg = JaxEncoderConfig(attn_impl="xla", **SMALL, **kw)
+    x = np.random.default_rng(7).standard_normal((3, n_tok, 64),
+                                                 dtype=np.float32)
+    model, params, port = jax_and_port_encoder(jcfg, x)
+    ref = np.asarray(model.apply({"params": params}, x, deterministic=True))
+    with torch.no_grad():
+        ours = port(torch.from_numpy(x)).numpy()
+    assert ours.shape == (3, n_tok + 1, 64)
+    np.testing.assert_allclose(ours, ref, rtol=2e-4, atol=2e-5)
+
+
+def test_attention_maps_and_values_match_jax():
+    jcfg = JaxEncoderConfig(attn_impl="xla", window_depth=3, **SMALL, **LTN)
+    x = np.random.default_rng(8).standard_normal((2, 48, 64),
+                                                 dtype=np.float32)
+    model, params, port = jax_and_port_encoder(jcfg, x)
+    _, probs, vs = model.apply({"params": params}, x, deterministic=True,
+                               return_v=True)
+    with torch.no_grad():
+        _, ours_probs, ours_vs = port(torch.from_numpy(x), return_v=True)
+    for a, b in zip(ours_probs + ours_vs, list(probs) + list(vs)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                   rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("kind", ["regressor", "classifier"])
+@pytest.mark.parametrize("weight_init", [False, True])
+def test_head_matches_jax(kind, weight_init):
+    head = jax_make_head(kind, d_model=64, hidden_dim=32,
+                         weight_init=weight_init)
+    x = np.random.default_rng(9).standard_normal((10, 64), dtype=np.float32)
+    params = jax.tree.map(np.asarray,
+                          head.init(jax.random.PRNGKey(1), x))["params"]
+    port = make_head(kind, 64, 32, weight_init=weight_init, device="cpu")
+    port.load_state_dict(head_state_dict_from_jax(params, kind), strict=True)
+    ref = np.asarray(head.apply({"params": params}, x, deterministic=True))
+    with torch.no_grad():
+        ours = port.eval()(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(ours, ref, rtol=2e-4, atol=2e-5)
+
+
+def test_head_rejects_wrong_input_width():
+    head = make_head("regressor", 32, device="cpu")
+    with pytest.raises(ValueError, match="d_model=32 got input width 16"):
+        head(torch.zeros(2, 16))
+
+
+@pytest.mark.parametrize("depth,size", [(3, 4), (5, 4), (2, 3), (1, 2)])
+def test_rpe_index_tables_bit_equal(depth, size):
+    np.testing.assert_array_equal(
+        rpe.relative_position_index_3d(depth, size),
+        jax_rpe.relative_position_index_3d(depth, size))
+    np.testing.assert_array_equal(rpe.relative_position_index_2d(size),
+                                  jax_rpe.relative_position_index_2d(size))
+    assert rpe.table_size_3d(depth, size) == jax_rpe.table_size_3d(depth,
+                                                                   size)
+
+
+def test_rpe_window_overflow_raises():
+    enc = Encoder(EncoderConfig(window_depth=3, **SMALL, **LTN), device="cpu")
+    with pytest.raises(ValueError, match="exceeds the relative-PE window"):
+        enc(torch.zeros(1, 49, 64))
+
+
+@pytest.mark.parametrize("knob", [dict(compute_dtype="bfloat16"),
+                                  dict(cast_sr=True), dict(remat=True)])
+def test_unported_knobs_raise(knob):
+    with pytest.raises(NotImplementedError, match="ROADMAP item A19"):
+        Encoder(EncoderConfig(**SMALL, **knob), device="cpu")
+
+
+def test_init_draws_from_the_generator():
+    """Same seed, same weights; the distributions follow the JAX package's
+    initializers (a distribution match only: the two draw different
+    numbers)."""
+    cfg = EncoderConfig(window_depth=3, **SMALL, **LTN)
+
+    def draw(seed):
+        return Encoder(cfg, device="cpu").reset_parameters(
+            torch.Generator().manual_seed(seed)).state_dict()
+
+    a, b, c = draw(0), draw(0), draw(1)
+    for key in a:
+        torch.testing.assert_close(a[key], b[key], rtol=0, atol=0)
+    w = a["layer_stack.0.slf_attn.w_qs.weight"]
+    assert not torch.equal(w, c["layer_stack.0.slf_attn.w_qs.weight"])
+    assert w.abs().max() <= 1 / np.sqrt(64)
+    table = a["layer_stack.0.slf_attn.relative_position_bias_table"]
+    assert 0.01 < table.std() < 0.03
