@@ -8,11 +8,13 @@
    package from the sources in this checkout (one nvcc per source, started
    together).
 2. Kernel phase: the attention kernel against its plain PyTorch version at
-   H=8, D=256 and every sequence length the models use (B=256), at B=2048
-   and at the main path's own shape, with and without bias; the error must
-   stay within rtol 1e-4 / atol 1e-5.  Times the kernel, the plain version
-   and, as a yardstick the package never calls,
-   F.scaled_dot_product_attention.
+   H=8, D=256 and every sequence length the models use plus the tile edges
+   L=64, 65 and 128 (B=256), at B=2048 and at the main path's own shape,
+   with and without bias, and at the main path's shape fed as the encoder
+   feeds it (strided views of [B, L, H, D] buffers); the error must stay
+   within rtol 1e-4 / atol 1e-5.  Times the kernel, the plain version and,
+   as a yardstick the package never calls, F.scaled_dot_product_attention.
+   Prints ptxas's registers and spills of each kernel instantiation.
 3. Slice phase (the main path): LTN scoring to frame AUC at full sht_ltn
    width (3 layers, d_model 2048, d_inner 4096, 8 heads, d_k 256) with
    random weights from a torch.Generator seeded 0, over synthetic features
@@ -31,6 +33,7 @@ Without a CUDA card it runs nothing and exits 2.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -40,9 +43,11 @@ import numpy as np
 RTOL, ATOL = 1e-4, 1e-5          # kernel vs plain on the card
 SCORE_ATOL, AUC_TOL = 5e-5, 1e-4  # main path, kernel vs plain
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-F32_FLOP_PER_S = 67e12           # f32 outside the tensor cores
+# the kernel's f32-accurate rate: 3xTF32 is three TF32 tensor-core products
+# (495 TFLOP/s dense) for each f32 one
+F32_FLOP_PER_S = 495e12 / 3
 H, D = 8, 256
-LENGTHS = (10, 17, 19, 28, 49, 81)
+LENGTHS = (10, 17, 19, 28, 49, 64, 65, 81, 128)  # model L and tile edges
 SEED = 0
 
 
@@ -75,7 +80,7 @@ def cuda_ms(fn, iters: int = 20) -> float:
 def bound(b: int, length: int, with_bias: bool):
     """Least time for one attention call: q, k, v read once, out written
     once (and the bias read once) over the memory rate, against the two
-    products' FLOPs over the f32 rate."""
+    products' FLOPs over the kernel's f32-accurate tensor-core rate."""
     n_bytes = 4 * (4 * b * H * length * D
                    + (H * length * length if with_bias else 0))
     flops = 4 * b * H * length * length * D
@@ -84,7 +89,26 @@ def bound(b: int, length: int, with_bias: bool):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_kernel(b: int, length: int, with_bias: bool, dev) -> dict:
+def ptxas_lines(log: str):
+    """One line per kernel instantiation from nvcc's -Xptxas=-v output: its
+    key-tile count (the template argument), registers, stack and spills."""
+    name, spill = "?", ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            t = re.search(r"ILi(\d+)E", m.group(1))
+            name = f"NT={t.group(1)}" if t else m.group(1)
+        elif "bytes stack frame" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            used = line.split(":", 1)[-1].strip()
+            yield f"{name}: {used}; {spill}"
+
+
+def check_kernel(b: int, length: int, with_bias: bool, dev,
+                 strided: bool = False) -> dict:
+    """q, k, v [B, H, L, D], contiguous or (``strided``) views of
+    [B, L, H, D] buffers as the encoder passes them."""
     import torch
     import torch.nn.functional as F
 
@@ -92,8 +116,11 @@ def check_kernel(b: int, length: int, with_bias: bool, dev) -> dict:
     from lstc_vad_tpu_torch.ops.cuda_attention import attention
 
     g = torch.Generator(device=dev).manual_seed(b * 1000 + length)
-    q, k, v = (torch.randn(b, H, length, D, device=dev, generator=g)
+    shape = (b, length, H, D) if strided else (b, H, length, D)
+    q, k, v = (torch.randn(*shape, device=dev, generator=g)
                for _ in range(3))
+    if strided:
+        q, k, v = (x.transpose(1, 2) for x in (q, k, v))
     bias = (torch.randn(H, length, length, device=dev, generator=g)
             if with_bias else None)
     temp = float(np.sqrt(D))
@@ -109,13 +136,13 @@ def check_kernel(b: int, length: int, with_bias: bool, dev) -> dict:
     if excess > 0:
         raise AssertionError(
             f"kernel disagrees with plain_sdpa at B={b} L={length} "
-            f"bias={with_bias}: max abs err {max_err} beyond rtol {RTOL} / "
-            f"atol {ATOL}")
+            f"bias={with_bias} strided={strided}: max abs err {max_err} "
+            f"beyond rtol {RTOL} / atol {ATOL}")
     mask = bias[None] if bias is not None else None
     bound_ms, bound_by = bound(b, length, with_bias)
     return {
         "B": b, "H": H, "L": length, "D": D, "bias": with_bias,
-        "max_abs_err": max_err,
+        "strided": strided, "max_abs_err": max_err,
         "ms": cuda_ms(lambda: attention(q, k, v, bias, temp)),
         "plain_ms": cuda_ms(lambda: plain_sdpa(q, k, v, temp, bias=bias)),
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -180,9 +207,8 @@ def main() -> int:
     built = ", ".join(sorted(logs)) or "nothing (up to date)"
     print(f"build: {time.perf_counter() - t0:.1f} s for {built}")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "bytes stack" in line:
-                print(f"  {name}: {line.strip()}")
+        for line in ptxas_lines(log):
+            print(f"  {name}: {line}")
 
     # -- the main path's data, model and attention shape -------------------
     t0 = time.perf_counter()
@@ -199,14 +225,15 @@ def main() -> int:
 
     # -- kernel phase -----------------------------------------------------
     shapes = [(256, n) for n in LENGTHS] + [(2048, 49), (main_b, main_len)]
+    cases = [(b, n, with_bias, False) for b, n in shapes
+             for with_bias in (False, True)]
+    cases.append((main_b, main_len, True, True))  # as the encoder feeds it
     rows = []
-    for b, length in shapes:
-        for with_bias in (False, True):
-            row = check_kernel(b, length, with_bias, dev)
-            rows.append(row)
-            print("kernel " + json.dumps(row))
-    main_row = next(r for r in rows if (r["B"], r["L"], r["bias"])
-                    == (main_b, main_len, True))
+    for b, length, with_bias, strided in cases:
+        row = check_kernel(b, length, with_bias, dev, strided)
+        rows.append(row)
+        print("kernel " + json.dumps(row))
+    main_row = rows[-1]
 
     # -- slice phase: the main path ---------------------------------------
     cuda_attention.reset_launches()
@@ -260,7 +287,8 @@ def main() -> int:
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
-        "shape": {k: main_row[k] for k in ("B", "H", "L", "D", "bias")},
+        "shape": {k: main_row[k]
+                  for k in ("B", "H", "L", "D", "bias", "strided")},
         "card": card}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

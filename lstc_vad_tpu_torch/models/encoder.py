@@ -130,9 +130,12 @@ class MultiHeadAttention(nn.Module):
         b, length, _ = x.shape
         h, dk, dv = c.n_head, c.d_k, c.d_v
         residual = x
-        q = self.w_qs(x).view(b, length, h, dk).transpose(1, 2).contiguous()
-        k = self.w_ks(x).view(b, length, h, dk).transpose(1, 2).contiguous()
-        v = self.w_vs(x).view(b, length, h, dv).transpose(1, 2).contiguous()
+        # [B, H, L, D] views of the projections, no copies: the kernel reads
+        # them strided and writes out as a view of a [B, L, H, D] buffer, so
+        # the reshape below is a view too
+        q = self.w_qs(x).view(b, length, h, dk).transpose(1, 2)
+        k = self.w_ks(x).view(b, length, h, dk).transpose(1, 2)
+        v = self.w_vs(x).view(b, length, h, dv).transpose(1, 2)
         dropout_p = c.attn_dropout if self.training else 0.0
         out = sdpa(q, k, v, temperature=math.sqrt(dk),
                    bias=self.relative_bias(length), mask=mask,

@@ -5,6 +5,10 @@ softmax(q·kᵀ/temperature + bias[h])·v for q, k, v [B, H, L, D] and bias
 [H, L, L] or None.  It replaces the TPU kernel
 lstc_vad_tpu/ops/pallas_attention.py::_kernel.
 
+- q, k and v may be strided views, as the encoder passes them: a unit
+  innermost stride, a 16-byte-aligned base, and batch, head and row strides
+  that are multiples of 4 elements.  The output is a [B, H, L, D] view of a
+  [B, L, H, D] buffer, the layout the encoder's output projection reads.
 - On CPU tensors it runs the plain version (ops/attention.py::plain_sdpa),
   because there is no kernel there.
 - On CUDA tensors it launches the kernel or raises.  It never falls back to
@@ -19,29 +23,44 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import _build
 from .attention import plain_sdpa
 
-WARP = 32
-MAX_WARPS = 16
+MAX_L = 128       # 16 key tiles of 8
 MAX_D = 256
-SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
+CHUNK = 32        # D-columns per pipeline stage
+ROW_FLOATS = CHUNK + 4  # a shared-memory row, padded against bank conflicts
+STAGES = 2        # shared-memory buffers of the copy pipeline
+BLOCK_WARPS = 4   # short sequences share a block up to this many warps
 
 launches = 0
 
 
-def num_warps(length: int) -> int:
-    return max(1, min(MAX_WARPS, length))
+class Tile(NamedTuple):
+    m_tiles: int     # 16-row query tiles of a pair: its warps
+    n_tiles: int     # 8-key tiles: the kernel's compile-time instantiation
+    pairs: int       # (b, h) pairs per block
+    threads: int     # of a block
+    smem_bytes: int  # dynamic shared memory of a block (all stages)
 
 
-def smem_bytes(length: int, d: int) -> int:
-    """Dynamic shared memory of one block: K and V of a (b, h) pair plus one
-    row of scores per warp (kept in step with csrc/attention.cu)."""
-    return 4 * (2 * length * d + num_warps(length) * length)
+def tile(length: int) -> Tile:
+    """The launch geometry at sequence length ``length`` (kept in step with
+    csrc/attention.cu::launch): query rows padded to 16 per warp, keys to 8;
+    a pair gets ceil(L/16) warps, and at L <= 32 a block takes as many pairs
+    as make 4 warps."""
+    if not 1 <= length <= MAX_L:
+        raise ValueError(f"attention: the kernel takes 1 <= L <= {MAX_L}, "
+                         f"got L={length}")
+    m_tiles, n_tiles = -(-length // 16), -(-length // 8)
+    pairs = max(1, BLOCK_WARPS // m_tiles)
+    rows = 16 * m_tiles + 8 * n_tiles
+    return Tile(m_tiles, n_tiles, pairs, 32 * m_tiles * pairs,
+                STAGES * 4 * pairs * rows * ROW_FLOATS)
 
 
 def reset_launches():
@@ -53,12 +72,19 @@ def reset_launches():
 def _kernel():
     lib = _build.load("attention")
     fn = lib.lstc_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.lstc_cuda_error_string.argtypes = [ctypes.c_int]
     lib.lstc_cuda_error_string.restype = ctypes.c_char_p
     return fn, lib.lstc_cuda_error_string
+
+
+def _strides(t: torch.Tensor):
+    """Batch, head and row strides in elements; 0 for a dimension of size 1,
+    whose stride PyTorch leaves arbitrary and the kernel never multiplies."""
+    return [s if n > 1 else 0 for s, n in zip(t.stride()[:3], t.shape[:3])]
 
 
 def _check(q, k, v, bias, temperature):
@@ -72,26 +98,32 @@ def _check(q, k, v, bias, temperature):
         if t.dtype != torch.float32:
             raise TypeError(f"attention: the kernel takes float32, {name} "
                             f"is {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"attention: {name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"attention: {name} must be 16-byte aligned")
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError("attention: q, k, v must share one [B, H, L, D] "
                          f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
+    for name in ("q", "k", "v"):
+        t = tensors[name]
+        if t.stride(-1) != 1:
+            raise ValueError(f"attention: {name} must have a unit innermost "
+                             f"stride, got strides {t.stride()}")
+        if t.data_ptr() % 16 or any(s % 4 for s in _strides(t)):
+            raise ValueError(
+                f"attention: {name} needs a 16-byte-aligned base and batch, "
+                f"head and row strides that are multiples of 4 elements, got "
+                f"strides {t.stride()}")
+    if bias is not None and not bias.is_contiguous():
+        raise ValueError("attention: bias must be contiguous")
     _, h, length, d = q.shape
-    if d % WARP or not 0 < d <= MAX_D:
-        raise ValueError(f"attention: the kernel takes D a multiple of {WARP} "
-                         f"up to {MAX_D}, got D={d}")
+    if d % CHUNK or not 0 < d <= MAX_D:
+        raise ValueError(f"attention: the kernel takes D a multiple of "
+                         f"{CHUNK} up to {MAX_D}, got D={d}")
+    if length > MAX_L:
+        raise ValueError(f"attention: the kernel takes L up to {MAX_L}, got "
+                         f"L={length}")
     if bias is not None and tuple(bias.shape) != (h, length, length):
         raise ValueError(f"attention: bias must be [H, L, L] = "
                          f"{(h, length, length)}, got {tuple(bias.shape)}")
-    need = smem_bytes(length, d)
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            f"attention: L={length}, D={d} needs {need} bytes of shared "
-            f"memory per block, over the {SMEM_LIMIT} an sm_90 block may use")
     if not temperature > 0:
         raise ValueError(f"attention: temperature must be > 0, got "
                          f"{temperature}")
@@ -109,15 +141,19 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "runs on CUDA tensors")
     _check(q, k, v, bias, temperature)
     b, h, length, d = q.shape
-    out = torch.empty_like(q)
-    if b * h == 0:
+    out = torch.empty(b, length, h, d, device=q.device,
+                      dtype=q.dtype).transpose(1, 2)
+    if out.numel() == 0:
         return out
+    strides = (ctypes.c_longlong * 12)(
+        *_strides(q), *_strides(k), *_strides(v), *_strides(out))
     fn, error_string = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 bias.data_ptr() if bias is not None else None,
-                out.data_ptr(), b, h, length, d, float(temperature), stream)
+                out.data_ptr(), strides, b, h, length, d, tile(length).pairs,
+                float(temperature), stream)
     if rc != 0:
         raise RuntimeError(f"attention kernel launch failed: "
                            f"{error_string(rc).decode()} (cudaError {rc}, "

@@ -98,19 +98,65 @@ def test_dropout_changes_output_only_when_active():
     assert not torch.allclose(det, dropped)
 
 
-def test_kernel_shared_memory_limit():
-    """K and V of one (b, h) pair live in shared memory: D=256 fits up to
-    L=110, and the wrapper refuses a shape past the 227 KB a block may use
-    before it reaches the card."""
-    assert cuda_attention.smem_bytes(81, 256) <= cuda_attention.SMEM_LIMIT
-    assert cuda_attention.smem_bytes(110, 256) <= cuda_attention.SMEM_LIMIT
-    assert cuda_attention.smem_bytes(111, 256) > cuda_attention.SMEM_LIMIT
-    q = torch.zeros(1, 1, 111, 256)
-    with pytest.raises(ValueError, match="shared memory"):
+def test_kernel_length_limit():
+    """The kernel covers L <= 128 (16 key tiles); the wrapper refuses
+    L = 129 before it reaches the card, at every D."""
+    for d in (32, 256):
+        q = torch.zeros(1, 1, 128, d)
         cuda_attention._check(q, q, q, None, 16.0)
+        q = torch.zeros(1, 1, 129, d)
+        with pytest.raises(ValueError, match="L up to 128, got L=129"):
+            cuda_attention._check(q, q, q, None, 16.0)
+    with pytest.raises(ValueError, match="L=129"):
+        cuda_attention.tile(129)
 
 
-@pytest.mark.parametrize("bad", ["dtype", "d", "bias", "contiguous"])
+# L -> (query tiles, key tiles, pairs per block, threads, shared bytes)
+TILES = {1: (1, 1, 4, 128, 27648), 10: (1, 2, 4, 128, 36864),
+         17: (2, 3, 2, 128, 32256), 19: (2, 3, 2, 128, 32256),
+         28: (2, 4, 2, 128, 36864), 49: (4, 7, 1, 128, 34560),
+         64: (4, 8, 1, 128, 36864), 65: (5, 9, 1, 160, 43776),
+         81: (6, 11, 1, 192, 52992), 128: (8, 16, 1, 256, 73728)}
+
+
+@pytest.mark.parametrize("length", sorted(TILES))
+def test_kernel_tile_table(length):
+    """Every model L (and the edges of the table): rows padded to 16 per
+    warp and keys to 8, at least 4 warps a block where several pairs share
+    it, and at most 64 KB of shared memory up to L=64, so that 3 blocks fit
+    on an SM."""
+    t = cuda_attention.tile(length)
+    assert tuple(t) == TILES[length]
+    assert 16 * (t.m_tiles - 1) < length <= 16 * t.m_tiles
+    assert 8 * (t.n_tiles - 1) < length <= 8 * t.n_tiles
+    assert t.threads == 32 * t.m_tiles * t.pairs <= 256
+    assert t.m_tiles * t.pairs >= 4 or t.pairs == 1
+    rows = t.pairs * (16 * t.m_tiles + 8 * t.n_tiles)
+    assert t.smem_bytes == (cuda_attention.STAGES * rows
+                            * cuda_attention.ROW_FLOATS * 4)
+    assert t.smem_bytes <= (64 * 1024 if length <= 64 else 227 * 1024)
+
+
+def test_kernel_checks_take_the_encoders_strided_views():
+    """The encoder passes [B, H, L, D] views of [B, L, H, D] projections;
+    the kernel's checks take them as they are, and the CPU path gives the
+    same values as on contiguous copies."""
+    rng = np.random.default_rng(5)
+    bufs = [torch.from_numpy(rng.standard_normal((3, 17, 2, 32),
+                                                 dtype=np.float32))
+            for _ in range(3)]
+    q, k, v = (x.transpose(1, 2) for x in bufs)
+    assert not q.is_contiguous() and q.stride() == (17 * 64, 32, 64, 1)
+    bias = torch.from_numpy(rng.standard_normal((2, 17, 17),
+                                                dtype=np.float32))
+    cuda_attention._check(q, k, v, bias, 4.0)
+    out = cuda_attention.attention(q, k, v, bias, 4.0)
+    ref = plain_sdpa(*(x.contiguous() for x in (q, k, v)), 4.0, bias=bias)
+    torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "d", "bias", "contiguous",
+                                 "row_stride", "base", "long"])
 def test_kernel_checks_reject_what_the_kernel_does_not_take(bad):
     q = torch.zeros(2, 2, 9, 32)
     bias = torch.zeros(2, 9, 9)
@@ -120,7 +166,14 @@ def test_kernel_checks_reject_what_the_kernel_does_not_take(bad):
         q = torch.zeros(2, 2, 9, 24)
     elif bad == "bias":
         bias = torch.zeros(1, 9, 9)
-    else:
+    elif bad == "contiguous":  # a non-unit innermost stride
         q = torch.zeros(2, 2, 32, 9).transpose(-1, -2)
+    elif bad == "row_stride":  # rows 34 floats apart: not 16-byte aligned
+        q = torch.zeros(2, 2, 9, 34)[..., :32]
+    elif bad == "base":
+        q = torch.zeros(2 * 2 * 9 * 32 + 1)[1:].view(2, 2, 9, 32)
+    else:
+        q = torch.zeros(2, 2, 129, 32)
+        bias = torch.zeros(2, 129, 129)
     with pytest.raises((TypeError, ValueError)):
         cuda_attention._check(q, q, q, bias, 4.0)

@@ -78,6 +78,36 @@ def test_encoder_matches_jax(name):
     np.testing.assert_allclose(ours, ref, rtol=2e-4, atol=2e-5)
 
 
+def test_attention_gets_views_of_the_projections(monkeypatch):
+    """MultiHeadAttention hands attention [B, H, L, D] views of its q, k, v
+    projections, with no copy, in a layout the kernel's checks take."""
+    from lstc_vad_tpu_torch.models import encoder as encoder_module
+    from lstc_vad_tpu_torch.ops import cuda_attention
+
+    seen = []
+    real_sdpa = encoder_module.sdpa
+
+    def spy(q, k, v, **kw):
+        seen.append((q, k, v))
+        return real_sdpa(q, k, v, **kw)
+
+    monkeypatch.setattr(encoder_module, "sdpa", spy)
+    widths = dict(SMALL, d_k=32, d_v=32)  # the kernel takes D = 32k
+    enc = Encoder(EncoderConfig(window_depth=3, **widths, **LTN), device="cpu")
+    enc.reset_parameters(torch.Generator().manual_seed(0)).eval()
+    x = np.random.default_rng(10).standard_normal((2, 48, 64),
+                                                  dtype=np.float32)
+    with torch.no_grad():
+        enc(torch.from_numpy(x))
+    assert len(seen) == SMALL["n_layers"]
+    for q, k, v in seen:
+        for t in (q, k, v):
+            assert t.shape == (2, 4, 49, 32)
+            assert t.stride() == (49 * 128, 32, 128, 1)
+            assert t._base is not None and t._base.shape == (2, 49, 128)
+        cuda_attention._check(q, k, v, None, 4.0)
+
+
 def test_attention_maps_and_values_match_jax():
     jcfg = JaxEncoderConfig(attn_impl="xla", window_depth=3, **SMALL, **LTN)
     x = np.random.default_rng(8).standard_normal((2, 48, 64),
