@@ -23,7 +23,29 @@
    The launch counter is set to 0 just before and read just after; it must
    equal n_layers x encoder calls.  The same eval with attn_impl="plain"
    must give the same frame scores (atol 5e-5) and AUC (within 1e-4).
-4. Prints one JSON line of kernels, then, as the last line,
+4. Autograd phase: the kernel's autograd Function (forward: the kernel;
+   backward: autograd through plain_sdpa) against autograd through
+   plain_sdpa at B=256, L in {17, 49, 81}, and at the main path's shape fed
+   as strided views, all with a bias that requires grad: out, dq, dk, dv and
+   dbias within rtol 1e-4 / atol 1e-5, and each forward launched the kernel.
+5. Train phase, at full sht_ltn width from the same seed-0 weights, over a
+   synthetic SHT-scale train split (238 videos, data/synthetic.py) and the
+   test split above:
+   (a) Trainer.fit(epochs=3) at the preset's dropouts: 3 steps of batch 40,
+       evaluations of the test and train splits after epochs 0 and 2.  The
+       kernel launches equal n_layers x the evaluations' encoder calls (the
+       steps run attention on the plain path, as the JAX package does at
+       attention dropout 0.2); losses and AUCs finite, parameters changed.
+   (b) One step with every dropout at 0 from the same weights and batch on
+       the kernel path and on an attn_impl="plain" copy: the kernel step
+       launches it n_layers times, the losses agree within rel 1e-5, each
+       parameter's gradient within 1e-3 relative (norm of the difference
+       over the norm; two accurate f32 forwards already differ by up to
+       ~2.5e-4 here, see GRAD_RTOL), and every parameter the JAX package
+       trains has a gradient on the kernel path.
+   Prints a ``train`` JSON line: s/step and snippets/s of steps 2-3, peak
+   device memory, the evaluations' wall time, launches, gradient errors.
+6. Prints one JSON line of kernels, then, as the last line,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed phase raises and the script exits non-zero without that line.
@@ -33,15 +55,24 @@ Without a CUDA card it runs nothing and exits 2.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 RTOL, ATOL = 1e-4, 1e-5          # kernel vs plain on the card
 SCORE_ATOL, AUC_TOL = 5e-5, 1e-4  # main path, kernel vs plain
+# dropout-free train step, kernel path vs plain path.  Per-parameter
+# gradients of this step move by up to ~2.5e-4 (relative norm) between any
+# two accurate f32 forwards: the plain step against the same step with its
+# attention in float64, or against the whole step in float64
+# (scripts/torch_train_grad_check.py).  So they are held at 1e-3, above that
+# spread; a missing or wrong gradient is off by O(1).
+LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-3
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 # the kernel's f32-accurate rate: 3xTF32 is three TF32 tensor-core products
 # (495 TFLOP/s dense) for each f32 one
@@ -151,6 +182,63 @@ def check_kernel(b: int, length: int, with_bias: bool, dev,
     }
 
 
+def check_autograd(b: int, length: int, dev, strided: bool) -> dict:
+    """The kernel's autograd Function against autograd through plain_sdpa:
+    out and the gradients of a random weighting of it for q, k, v (leaves
+    of [B, L, H, D] buffers when ``strided``) and a bias that requires
+    grad."""
+    import torch
+
+    from lstc_vad_tpu_torch.ops import cuda_attention
+    from lstc_vad_tpu_torch.ops.attention import plain_sdpa
+
+    g = torch.Generator(device=dev).manual_seed(7 * b + length)
+    shape = (b, length, H, D) if strided else (b, H, length, D)
+    bufs = [torch.randn(*shape, device=dev, generator=g) for _ in range(3)]
+    bias0 = torch.randn(H, length, length, device=dev, generator=g)
+    w = torch.randn(b, H, length, D, device=dev, generator=g)
+    temp = float(np.sqrt(D))
+
+    def run(fn):
+        leaves = [x.clone().requires_grad_() for x in bufs]
+        bias = bias0.clone().requires_grad_()
+        q, k, v = ((x.transpose(1, 2) for x in leaves) if strided
+                   else leaves)
+        out = fn(q, k, v, bias)
+        grads = torch.autograd.grad((out * w).sum(), leaves + [bias])
+        return [out.detach(), *grads]
+
+    def kernel(q, k, v, bias):
+        return cuda_attention.attention(q, k, v, bias, temp)
+
+    def plain(q, k, v, bias):
+        return plain_sdpa(q, k, v, temp, bias=bias)
+
+    before = cuda_attention.launches
+    ours = run(kernel)
+    torch.cuda.synchronize()
+    if cuda_attention.launches != before + 1:
+        raise AssertionError("the autograd Function's forward did not "
+                             f"launch the kernel at B={b} L={length}")
+    ref = run(plain)
+    errs = {}
+    for name, a, r in zip(("out", "dq", "dk", "dv", "dbias"), ours, ref):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"autograd: non-finite {name} at B={b} "
+                                 f"L={length}")
+        err = (a - r).abs()
+        errs[name] = err.max().item()
+        if (err - (ATOL + RTOL * r.abs())).max().item() > 0:
+            raise AssertionError(
+                f"autograd: {name} disagrees with plain at B={b} L={length} "
+                f"strided={strided}: max abs err {errs[name]} beyond rtol "
+                f"{RTOL} / atol {ATOL}")
+    return {"B": b, "H": H, "L": length, "D": D, "strided": strided,
+            "max_abs_err": errs,
+            "fwd_bwd_ms": cuda_ms(lambda: run(kernel), iters=5),
+            "plain_fwd_bwd_ms": cuda_ms(lambda: run(plain), iters=5)}
+
+
 def set_up(seed: int = SEED):
     """TF32 off, then the main path's config, synthetic data and model on the
     card (scripts/torch_eval_profile.py drives the same set-up)."""
@@ -166,6 +254,154 @@ def set_up(seed: int = SEED):
     items = sht_test_split(seed)
     encoder, head = build(cfg, device="cuda", seed=seed)
     return cfg, items, encoder, head
+
+
+def set_up_train(root: str, seed: int = SEED, **overrides):
+    """The train phase's config and data (scripts/torch_train_profile.py
+    drives the same set-up): ``sht_ltn`` at full width, the synthetic SHT
+    train split made from ``seed`` with its list and masks written under
+    ``root``, evaluations every 2 epochs, TF32 off.  Returns (cfg, store)."""
+    import torch
+
+    from lstc_vad_tpu_torch.config import preset, replace
+    from lstc_vad_tpu_torch.data.synthetic import (sht_train_split,
+                                                   write_train_files)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    store, records, masks = sht_train_split(seed)
+    train_txt, mask_dir = write_train_files(root, records, masks)
+    cfg = replace(preset("sht_ltn"), **{
+        "data.train_txt": train_txt, "data.test_mask_dir": mask_dir,
+        "inter_epoch": 2, "model_save_dir": os.path.join(root, "ckpt"),
+        **overrides})
+    return cfg, store
+
+
+def no_dropout(cfg):
+    from lstc_vad_tpu_torch.config import replace
+
+    return replace(cfg, **{"encoder.attn_dropout": 0.0,
+                           "encoder.fc_dropout": 0.0,
+                           "encoder.ffn_dropout": 0.0,
+                           "encoder.position_dropout": 0.0,
+                           "head.dropout": 0.0})
+
+
+def named_params(state) -> dict:
+    return {**{f"encoder.{k}": p for k, p in
+               state.encoder.named_parameters()},
+            **{f"head.{k}": p for k, p in state.head.named_parameters()}}
+
+
+def run_train(cfg, store, test_videos, card: str) -> dict:
+    """Train phase (a) and (b); raises on any failed check."""
+    import torch
+
+    from lstc_vad_tpu_torch.config import replace
+    from lstc_vad_tpu_torch.data import BatchIterator
+    from lstc_vad_tpu_torch.ops import cuda_attention
+    from lstc_vad_tpu_torch.train import create_train_state, make_train_step
+    from lstc_vad_tpu_torch.train.driver import Trainer
+
+    n_layers = cfg.encoder.n_layers
+    # -- (a) fit at the preset's dropouts ---------------------------------
+    trainer = Trainer(cfg, store=store, test_videos=test_videos)
+    start = {n: p.detach().clone()
+             for n, p in named_params(trainer.state).items()}
+    torch.cuda.reset_peak_memory_stats()
+    cuda_attention.reset_launches()
+    result = trainer.fit(epochs=3)
+    fit_launches = cuda_attention.launches
+    fit_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    eval_calls = trainer.scorer.scorer.n_calls
+    if fit_launches != n_layers * eval_calls or fit_launches == 0:
+        raise AssertionError(
+            f"fit launched the kernel {fit_launches} times; expected "
+            f"{n_layers} layers x {eval_calls} eval encoder calls and none "
+            "in the steps")
+    with open(cfg.metrics_jsonl) as f:
+        epochs = [r for r in map(json.loads, f) if r["kind"] == "train"]
+    if result.steps != 3 or len(epochs) != 3 or len(result.history) != 2:
+        raise AssertionError(f"fit ran {result.steps} steps, {len(epochs)} "
+                             f"epochs and {len(result.history)} evaluations")
+    losses = [r["loss"] for r in epochs]
+    aucs = [(h["auc_test"], h["auc_train"]) for h in result.history]
+    if not np.isfinite(losses).all() or not np.isfinite(aucs).all():
+        raise AssertionError(f"fit gave losses {losses}, AUCs {aucs}")
+    unchanged = [n for n, p in named_params(trainer.state).items()
+                 if torch.equal(p, start[n])
+                 and not n.startswith("encoder.layer_norm.")]
+    if unchanged:
+        raise AssertionError(f"fit left parameters unchanged: {unchanged}")
+    s_per_step = float(np.mean([r["seconds"] for r in epochs[1:]]))
+    snippets = 2 * cfg.data.batch_size * cfg.data.part_num * cfg.data.part_len
+
+    # -- (b) one dropout-free step, kernel path against plain path ----------
+    cfg0 = no_dropout(cfg)
+    batch = next(iter(BatchIterator(trainer.dataset, cfg.data.batch_size)))
+    eval_s = trainer.eval_seconds
+    del trainer, start
+    torch.cuda.empty_cache()
+    states = {impl: create_train_state(
+        replace(cfg0, **{"encoder.attn_impl": impl}), seed=SEED)
+        for impl in ("auto", "plain")}
+    states["plain"].encoder.load_state_dict(
+        states["auto"].encoder.state_dict())
+    states["plain"].head.load_state_dict(states["auto"].head.state_dict())
+    step = make_train_step(cfg0)
+    for impl, st in states.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_attention.reset_launches()
+        t0 = time.perf_counter()
+        _, metrics = step(st, *batch)
+        loss = float(metrics["loss"])  # waits for the step
+        states[impl] = (st, loss, time.perf_counter() - t0,
+                        cuda_attention.launches,
+                        torch.cuda.max_memory_allocated() / 2 ** 30)
+    (sk, loss_k, sec_k, launch_k, peak_k), (sp, loss_p, sec_p, launch_p, _) \
+        = states["auto"], states["plain"]
+    if launch_k != n_layers or launch_p != 0:
+        raise AssertionError(f"dropout-free step launched the kernel "
+                             f"{launch_k} times (expected {n_layers}); the "
+                             f"plain step {launch_p} (expected 0)")
+    if not abs(loss_k - loss_p) <= LOSS_RTOL * abs(loss_p):
+        raise AssertionError(f"dropout-free step: loss {loss_k} (kernel) vs "
+                             f"{loss_p} (plain), limit rel {LOSS_RTOL}")
+    # the JAX package has no parameter for the input LayerNorm, which the
+    # preset leaves unused: every other parameter must get a gradient
+    unused = {"encoder.layer_norm.weight", "encoder.layer_norm.bias"}
+    pk, pp = named_params(sk), named_params(sp)
+    missing = [n for n, p in pk.items() if p.grad is None and n not in unused]
+    if missing or any(pp[n].grad is None for n in pk if n not in unused):
+        raise AssertionError(f"no gradient on the kernel path for {missing}")
+    grad_err = {}
+    for n in pk:
+        if n in unused:
+            continue
+        ref = pp[n].grad
+        grad_err[n] = ((pk[n].grad - ref).norm() / ref.norm()).item()
+    worst = max(grad_err, key=grad_err.get)
+    if not grad_err[worst] <= GRAD_RTOL:
+        raise AssertionError(f"dropout-free step: gradient of {worst} off by "
+                             f"{grad_err[worst]} relative (limit "
+                             f"{GRAD_RTOL})")
+    return {
+        "preset": "sht_ltn", "batch_size": cfg.data.batch_size,
+        "steps": result.steps, "losses": losses, "aucs": aucs,
+        "epoch_seconds": [r["seconds"] for r in epochs],
+        "s_per_step": s_per_step, "snippets_per_step": snippets,
+        "snippets_per_s": snippets / s_per_step,
+        "fit_peak_gb": fit_peak_gb, "eval_wall_s": eval_s,
+        "fit_launches": fit_launches, "eval_encoder_calls": eval_calls,
+        "dropout0": {"loss": loss_k, "plain_loss": loss_p,
+                     "launches": launch_k, "s": sec_k, "plain_s": sec_p,
+                     "peak_gb": peak_k, "max_grad_rel_err": grad_err[worst],
+                     "worst_param": worst, "params_above_1e-4": sum(
+                         e > 1e-4 for e in grad_err.values()),
+                     "params": len(grad_err)},
+        "card": card}
 
 
 def run_eval(encoder, head, cfg, items):
@@ -277,6 +513,26 @@ def main() -> int:
         "plain_wall_s": plain_wall, "plain_parts_per_s": n_parts / plain_wall,
         "card": card}))
 
+    # -- autograd phase: the kernel's gradient ------------------------------
+    grad_rows = [check_autograd(256, n, dev, False) for n in (17, 49, 81)]
+    grad_rows.append(check_autograd(main_b, main_len, dev, True))
+    for row in grad_rows:
+        print("autograd " + json.dumps(row))
+
+    # -- train phase ------------------------------------------------------
+    from lstc_vad_tpu_torch.data.synthetic import as_test_videos
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        cfg_t, store = set_up_train(
+            root, metrics_jsonl=os.path.join(root, "metrics.jsonl"))
+        print(f"train data: {len(store.feats)} videos, "
+              f"{sum(f.shape[0] for f in store.feats.values())} clips, "
+              f"{store.nbytes / 2 ** 30:.2f} GiB of host RAM, made in "
+              f"{time.perf_counter() - t0:.1f} s")
+        train = run_train(cfg_t, store, as_test_videos(items), card)
+    print("train " + json.dumps(train))
+
     max_err = max(r["max_abs_err"] for r in rows)  # over every shape checked
     print(json.dumps({"kernels": [{
         "name": "attention", "route": "cuda",
@@ -287,6 +543,9 @@ def main() -> int:
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "train_launches": {"fit_evals": train["fit_launches"],
+                           "fit_steps": 0,
+                           "dropout0_step": train["dropout0"]["launches"]},
         "shape": {k: main_row[k]
                   for k in ("B", "H", "L", "D", "bias", "strided")},
         "card": card}]}))

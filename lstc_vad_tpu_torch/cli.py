@@ -1,15 +1,25 @@
-"""CLI of the PyTorch package — the ``evaluate`` subcommand of
-lstc_vad_tpu/cli/main.py:492-632 (SHT and UBnormal, STN and LTN):
+"""CLI of the PyTorch package — the ``train`` and ``evaluate`` subcommands of
+lstc_vad_tpu/cli/main.py:359-401, 492-632, 1109-1127 (SHT and UBnormal, STN
+and LTN):
+
+    python -m lstc_vad_tpu_torch train --preset sht_ltn --h5 feats.h5 \\
+        --train-txt SH_Train_new.txt --test-txt SH_Test_NEW.txt \\
+        --mask-dir masks/ [--epochs N] [--metrics-jsonl m.jsonl] \\
+        [--resume state.pt] [--save-state state.pt] [--save-best best.pt] \\
+        [--set optim.lr_encoder=3e-4 ...] [--device cuda|cpu]
 
     python -m lstc_vad_tpu_torch evaluate --preset sht_ltn \\
         --h5 feats.h5 --test-txt SH_Test_NEW.txt --mask-dir masks/ \\
         [--torch-ckpt --encoder-ckpt enc.ckpt --head-ckpt head.ckpt] \\
         [--set encoder.n_layers=2 ...] [--device cuda|cpu]
 
-The flags are the JAX CLI's.  The model and scorer are built directly (no
-trainer), on the card unless ``--device cpu`` is given, and the frame AUC is
-printed as ``auc = <value>``.  Config fields are overridden with --set
-path=value, typed by the dataclass field.
+The flags are the JAX CLI's; a device mesh (``--mesh``, ``--multihost``) is
+not offered yet (ROADMAP A18).  Everything runs on the card unless
+``--device cpu`` is given.  ``train`` fits with the Trainer
+(train/driver.py) and logs per-epoch losses and AUCs; ``evaluate`` builds the
+model and scorer directly and prints the frame AUC as ``auc = <value>``.
+Config fields are overridden with --set path=value, typed by the dataclass
+field.
 """
 
 from __future__ import annotations
@@ -82,10 +92,16 @@ def _coerce(cfg, path: str, raw: str):
 
 
 def _apply_common(cfg: TrainConfig, args) -> TrainConfig:
-    mapping = {"h5": "data.h5_path", "test_txt": "data.test_txt",
-               "mask_dir": "data.test_mask_dir", "seed": "seed"}
+    mapping = {"h5": "data.h5_path", "train_txt": "data.train_txt",
+               "test_txt": "data.test_txt", "mask_dir": "data.test_mask_dir",
+               "pseudo_labels": "data.pseudo_labels_path",
+               "batch_size": "data.batch_size", "epochs": "epochs",
+               "save_dir": "model_save_dir", "metrics_jsonl": "metrics_jsonl",
+               "seed": "seed"}
     kw = {path: getattr(args, name) for name, path in mapping.items()
           if getattr(args, name, None) is not None}
+    if getattr(args, "seed", None) is not None:
+        kw["data.seed"] = args.seed  # the sampler's too, as the JAX CLI
     cfg = replace(cfg, **kw) if kw else cfg
     for item in args.set or []:
         path, _, raw = item.partition("=")
@@ -157,9 +173,72 @@ def cmd_evaluate(args):
     return 0
 
 
+def cmd_train(args):
+    import logging
+
+    from .ckpt import save_checkpoint
+    from .train.driver import Trainer
+
+    cfg = _apply_common(preset(args.preset), args)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(message)s")
+    logger = logging.getLogger("lstc_vad_tpu_torch")
+    trainer = Trainer(cfg, logger=logger, device=args.device)
+    if args.resume:
+        trainer.restore_state(args.resume)
+        logger.info("resumed from %s at step %d", args.resume,
+                    trainer.state.step)
+    result = trainer.fit(epochs=args.epochs)
+    if args.save_state:
+        trainer.save_state(args.save_state)
+        logger.info("saved full train state to %s", args.save_state)
+    if args.save_best:
+        # the reference keeps the best-AUC epoch's weights, not the last
+        # (spatio_transformer_shanghaitech.py:177-191); the final ones when
+        # no evaluation ran
+        best = trainer.best_params or trainer.params()
+        save_checkpoint(args.save_best, best)
+        gate_auc, gate_ep = ((result.best_train_auc, result.best_train_epoch)
+                             if cfg.eval_train_split else
+                             (result.best_test_auc, result.best_test_epoch))
+        logger.info("saved best-gate params to %s (gate AUC %.4f @%d)",
+                    args.save_best, gate_auc, gate_ep)
+    logger.info("best test AUC %.4f @%d, best train AUC %.4f @%d",
+                result.best_test_auc, result.best_test_epoch,
+                result.best_train_auc, result.best_train_epoch)
+    return 0
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="lstc_vad_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+    t = sub.add_parser("train", help="train STN or LTN (preset decides)")
+    t.add_argument("--preset", required=True, choices=sorted(PRESETS))
+    t.add_argument("--h5")
+    t.add_argument("--train-txt", dest="train_txt")
+    t.add_argument("--test-txt", dest="test_txt")
+    t.add_argument("--mask-dir", dest="mask_dir")
+    t.add_argument("--pseudo-labels", dest="pseudo_labels")
+    t.add_argument("--batch-size", dest="batch_size", type=int)
+    t.add_argument("--seed", type=int)
+    t.add_argument("--epochs", type=int)
+    t.add_argument("--save-dir", dest="save_dir")
+    t.add_argument("--metrics-jsonl", dest="metrics_jsonl",
+                   help="append structured per-epoch/eval metrics (one JSON "
+                        "line each) to this file")
+    t.add_argument("--resume", help="restore the full train state from this "
+                                    "checkpoint file")
+    t.add_argument("--save-state", dest="save_state",
+                   help="save the full train state after fitting")
+    t.add_argument("--save-best", dest="save_best",
+                   help="save the best-AUC epoch's params, like the "
+                        "reference's AUC-gated checkpoints")
+    t.add_argument("--set", action="append", metavar="PATH=VALUE",
+                   help="override any config field, e.g. "
+                        "optim.lr_encoder=3e-4")
+    t.add_argument("--device", default="cuda",
+                   help="'cuda' (default; fails without a card) or 'cpu'")
+    t.set_defaults(fn=cmd_train)
     e = sub.add_parser("evaluate", help="frame-AUC evaluation")
     e.add_argument("--preset", required=True, choices=sorted(PRESETS))
     e.add_argument("--h5")

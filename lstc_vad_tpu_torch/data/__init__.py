@@ -1,2 +1,9 @@
-from .datasets import TestVideo, load_test_videos  # noqa: F401
+from .datasets import (  # noqa: F401
+    PairedTrainDataset,
+    TestVideo,
+    load_pseudo_labels,
+    load_test_videos,
+    load_train_records,
+)
 from .feature_store import FeatureStore  # noqa: F401
+from .pipeline import BatchIterator, Prefetcher  # noqa: F401

@@ -1,5 +1,15 @@
-"""Test-video loading — the evaluation side of lstc_vad_tpu/data/datasets.py
-(``TestVideo``, ``load_test_videos``, :161-252).
+"""Balanced-pair training dataset and test-video loading — a copy of
+lstc_vad_tpu/data/datasets.py:29-158, 161-262 (numpy only).
+
+Training contract (all reference train datasets share it,
+utils/load_dataset.py:49-106): item i pairs the i-th video of a per-epoch
+random permutation of the normal videos with the i-th of the abnormal
+permutation; length = min(#normal, #abnormal); each video contributes
+``part_num`` windows of ``part_len`` consecutive clips (data/sampler.py), the
+first ``n_patch`` patches kept; labels come from the pseudo-label dict when
+given (entries of shape [L] or [L,2] — last column used), else constant 0/1.
+The tenCrop layout is not ported yet (ROADMAP A14), nor are the
+``PackedStore`` gather fast paths (A6).
 
 Test videos carry per-frame annotations: zeros(n_frames) for normal, the GT
 mask .npy (SHT/UBnormal, utils/load_dataset.py:119-126) or GT h5 row (UCF,
@@ -11,18 +21,106 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from .annotations import parse_sht_test, parse_ubnormal, parse_ucf_test
+from .annotations import (TrainRecord, parse_sht_test, parse_sht_train,
+                          parse_ubnormal, parse_ucf_test, parse_ucf_train)
+from .sampler import maybe_double_short, sample_part_indices
+
+
+def load_pseudo_labels(path: str) -> Dict[str, np.ndarray]:
+    """Pseudo-label artifact: a dict {key+'.npy': scores} saved via np.save
+    (Train/pseudo_labels_generator_spatio.py:88-89)."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"Can NOT open the pseudo labels file: {path}")
+    return np.load(path, allow_pickle=True).tolist()
+
+
+def _labels_for(pseudo: Optional[np.ndarray], feat_len: int,
+                is_abnormal: bool) -> np.ndarray:
+    if pseudo is None:
+        fill = 1.0 if is_abnormal else 0.0
+        return np.full(feat_len, fill, dtype=np.float32)
+    labs = np.asarray(pseudo, dtype=np.float32)
+    if labs.ndim == 2 and labs.shape[-1] == 2:
+        labs = labs[:, -1]
+    return labs.reshape(-1)
+
+
+class PairedTrainDataset:
+    """Normal/abnormal balanced pairs with per-epoch reshuffling.
+    ``double_short``: the UCF rule, videos of at most ``part_len`` clips are
+    doubled clip-wise (data/sampler.py::maybe_double_short)."""
+
+    def __init__(self, records: Sequence[TrainRecord], store,
+                 part_num: int, part_len: int, n_patch: int, sample: str,
+                 pseudo_labels: Optional[Dict[str, np.ndarray]] = None,
+                 ten_crop: bool = False, double_short: bool = False,
+                 seed: int = 0):
+        if ten_crop:
+            raise NotImplementedError("tenCrop training data is not ported "
+                                      "yet (ROADMAP A14)")
+        self.normal = [r for r in records if not r.is_abnormal]
+        self.abnormal = [r for r in records if r.is_abnormal]
+        self.store = store
+        self.part_num = part_num
+        self.part_len = part_len
+        self.n_patch = n_patch
+        self.sample = sample
+        self.pseudo_labels = pseudo_labels
+        self.double_short = double_short
+        self.rng = np.random.default_rng(seed)
+        self.shuffle_keys()
+
+    def __len__(self) -> int:
+        return min(len(self.normal), len(self.abnormal))
+
+    def shuffle_keys(self):
+        """Per-epoch reshuffle, called by the train loop like the reference's
+        dataloader.dataset.shuffle_keys() (spatio_transformer_shanghaitech.py:115)."""
+        self._norm_perm = self.rng.permutation(len(self.normal))
+        self._abnorm_perm = self.rng.permutation(len(self.abnormal))
+
+    def _pseudo_for(self, key: str) -> Optional[np.ndarray]:
+        if self.pseudo_labels is None:
+            return None
+        if key + ".npy" in self.pseudo_labels:
+            return self.pseudo_labels[key + ".npy"]
+        return self.pseudo_labels[key]
+
+    def _sample_video(self, rec: TrainRecord):
+        feat = self.store.get(rec.key)
+        labs = _labels_for(self._pseudo_for(rec.key), feat.shape[0],
+                           rec.is_abnormal)
+        if self.double_short:
+            feat = maybe_double_short(feat, self.part_len)
+            # keep pseudo labels aligned with the doubled clips (the
+            # reference doubles only the features and would IndexError here)
+            while len(labs) < feat.shape[0]:
+                labs = np.repeat(labs, 2)
+            labs = labs[:feat.shape[0]]
+        idx = sample_part_indices(feat.shape[0], self.part_num, self.part_len,
+                                  self.sample, self.rng)
+        feat = feat[idx]
+        if feat.ndim == 3:
+            feat = feat[:, :self.n_patch, :]
+        return np.ascontiguousarray(feat, dtype=np.float32), labs[idx]
+
+    def __getitem__(self, item: int):
+        nf, nl = self._sample_video(self.normal[self._norm_perm[item]])
+        af, al = self._sample_video(self.abnormal[self._abnorm_perm[item]])
+        return nf, nl, af, al
 
 
 @dataclasses.dataclass
 class TestVideo:
     """Lazy test-split handle: annotations + clip count are resident, the
     feature array is fetched from the store per ``.feat`` access, so a split
-    never holds more than the video being scored in RAM."""
+    never holds more than the video being scored in RAM.  ``cache=True``
+    memoizes the first fetch instead: in-training eval re-scores the split
+    every ``inter_epoch`` epochs."""
 
     __test__ = False  # not a pytest class despite the Test* name
 
@@ -32,16 +130,27 @@ class TestVideo:
     n_frames: Optional[int] = None
     n_clips: Optional[int] = None
     loader: Optional[Callable[[], np.ndarray]] = None
+    cache: bool = False
+    _feat: Optional[np.ndarray] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def feat(self) -> np.ndarray:
-        """[n_clips, n_patch, d], read from the store."""
-        return self.loader()
+        """[n_clips, n_patch, d], read from the store (memoized when
+        ``cache``)."""
+        if self._feat is not None:
+            return self._feat
+        f = self.loader()
+        if self.cache:
+            self._feat = f
+        return f
 
 
 def load_test_videos(dataset: str, test_txt: str, store,
-                     mask_dir: str = "", mask_h5: str = "") -> List[TestVideo]:
-    """Test split as lazy handles with per-frame GT, per dataset format."""
+                     mask_dir: str = "", mask_h5: str = "",
+                     cache: bool = False) -> List[TestVideo]:
+    """Test split as lazy handles with per-frame GT, per dataset format;
+    ``cache`` as in ``TestVideo``."""
 
     def lazy(key: str) -> Callable[[], np.ndarray]:
         return lambda: store.get(key)
@@ -55,7 +164,7 @@ def load_test_videos(dataset: str, test_txt: str, store,
                 anno = np.zeros(rec.n_frames)
             videos.append(TestVideo(rec.key, anno, rec.is_abnormal,
                                     rec.n_frames, store.n_clips(rec.key),
-                                    lazy(rec.key)))
+                                    lazy(rec.key), cache))
     elif dataset == "UBnormal":
         for rec in parse_ubnormal(test_txt):
             # test loader keys on the "abnormal" prefix (load_dataset.py:617)
@@ -70,7 +179,8 @@ def load_test_videos(dataset: str, test_txt: str, store,
                         "utils/load_dataset.py:613-617)")
                 anno = np.zeros(int(rec.n_frames))
             videos.append(TestVideo(rec.key, anno, abnormal, rec.n_frames,
-                                    store.n_clips(rec.key), lazy(rec.key)))
+                                    store.n_clips(rec.key), lazy(rec.key),
+                                    cache))
     elif dataset == "UCF":
         import h5py
 
@@ -82,7 +192,17 @@ def load_test_videos(dataset: str, test_txt: str, store,
                     anno = np.zeros(rec.n_frames)
                 videos.append(TestVideo(rec.key, anno, rec.is_abnormal,
                                         rec.n_frames, store.n_clips(rec.key),
-                                        lazy(rec.key)))
+                                        lazy(rec.key), cache))
     else:
         raise ValueError(f"unknown dataset {dataset!r}")
     return videos
+
+
+def load_train_records(dataset: str, train_txt: str) -> List[TrainRecord]:
+    if dataset == "SHT":
+        return parse_sht_train(train_txt)
+    if dataset == "UCF":
+        return parse_ucf_train(train_txt)
+    if dataset == "UBnormal":
+        return parse_ubnormal(train_txt)
+    raise ValueError(f"unknown dataset {dataset!r}")

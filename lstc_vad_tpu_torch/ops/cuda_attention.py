@@ -15,8 +15,16 @@ lstc_vad_tpu/ops/pallas_attention.py::_kernel.
   the plain version: a shape, dtype or layout the kernel does not take is an
   error, and so is a launch the runtime refuses.
 
-``launches`` counts the kernel launches of this process; a run resets it to
-0 and reads it afterwards to show that its path went through the kernel.
+``attention`` is differentiable: a ``torch.autograd.Function`` whose forward
+is the kernel (the plain version on CPU tensors) and whose backward reruns
+``plain_sdpa`` under autograd on the saved q, k, v and bias — the one source
+of the attention math, as lstc_vad_tpu/ops/pallas_attention.py:98-169 wraps
+its kernel in a ``jax.custom_vjp`` that recomputes through ``_xla_reference``.
+Under ``torch.inference_mode`` (the scorers) nothing is saved.
+
+``launches`` counts the kernel launches of this process (forward launches;
+the backward launches none); a run resets it to 0 and reads it afterwards to
+show that its path went through the kernel.
 """
 
 from __future__ import annotations
@@ -129,9 +137,9 @@ def _check(q, k, v, bias, temperature):
                          f"{temperature}")
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              bias: Optional[torch.Tensor], temperature: float
-              ) -> torch.Tensor:
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            bias: Optional[torch.Tensor], temperature: float) -> torch.Tensor:
+    """The kernel on CUDA tensors, the plain version on CPU tensors."""
     global launches
     tensors = [q, k, v] + ([bias] if bias is not None else [])
     if all(t.device.type == "cpu" for t in tensors):
@@ -160,3 +168,35 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"B={b} H={h} L={length} D={d})")
     launches += 1
     return out
+
+
+class _Attention(torch.autograd.Function):
+    """Forward: the kernel.  Backward: autograd through ``plain_sdpa`` on
+    detached copies of the saved inputs (q, k, v are the encoder's strided
+    views of its projections; saving them copies nothing)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, temperature):
+        ctx.temperature = temperature
+        ctx.save_for_backward(q, k, v, bias)
+        return _launch(q, k, v, bias, temperature)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, bias = ctx.saved_tensors
+        wanted = ctx.needs_input_grad[:4]
+        inputs = [t.detach().requires_grad_(need) if t is not None else None
+                  for t, need in zip((q, k, v, bias), wanted)]
+        with torch.enable_grad():
+            out = plain_sdpa(*inputs[:3], ctx.temperature, bias=inputs[3])
+        # autograd calls backward only when some input needs a gradient
+        wrt = [t for t, need in zip(inputs, wanted) if need]
+        grads = iter(torch.autograd.grad(out, wrt, grad_out))
+        return tuple(next(grads) if need else None for need in wanted) + (
+            None,)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              bias: Optional[torch.Tensor], temperature: float
+              ) -> torch.Tensor:
+    return _Attention.apply(q, k, v, bias, temperature)

@@ -1,0 +1,284 @@
+"""Generic training driver: one loop serves STN and LTN — PyTorch counterpart
+of lstc_vad_tpu/train/driver.py:36-427.
+
+Replaces the reference's copy-pasted per-dataset train scripts
+(Train/spatio_transformer_*.py, Train/temporal_transformer_*.py) with one
+parameterized loop: balanced-pair batches through the prefetching pipeline,
+the train step of ``cfg.model``, evaluation every ``inter_epoch`` epochs over
+the test (and optionally train) split, AUC-gated checkpoints.
+
+SHT and UBnormal are ported.  Not yet: the UCF scorers and tenCrop stores
+(ROADMAP A14), ``.lstcpack`` stores (A6), a narrower wire type for batches
+(A19), asynchronous autosave (A12) and a device mesh (A18); each raises
+``NotImplementedError``.
+
+Modes: a step puts the modules in train mode (train/steps.py) and
+``evaluate`` puts them in eval mode, so in-training evaluation runs without
+dropout and its attention takes the Hopper kernel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import os
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from ..ckpt.io import load_checkpoint, save_checkpoint
+from ..config import TrainConfig
+from ..data import (BatchIterator, FeatureStore, PairedTrainDataset,
+                    Prefetcher, load_pseudo_labels, load_test_videos,
+                    load_train_records)
+from ..device import resolve_device
+from ..evaluation.drivers import evaluate_ltn, evaluate_stn
+from ..evaluation.scoring import ClipScorer, PartScorer
+from .state import create_train_state
+from .steps import make_train_step
+
+
+@dataclasses.dataclass
+class TrainResult:
+    best_test_auc: float = 0.0
+    best_test_epoch: int = 0
+    best_train_auc: float = 0.0
+    best_train_epoch: int = 0
+    history: List[Dict] = dataclasses.field(default_factory=list)
+    steps: int = 0
+
+
+def _check_supported(cfg: TrainConfig):
+    d = cfg.data
+    if d.dataset == "UCF":
+        raise NotImplementedError("the UCF scorers (UCFBinnedScorer, "
+                                  "UCFClipBinScorer) are not ported yet "
+                                  "(ROADMAP A14)")
+    if d.ten_crop:
+        raise NotImplementedError("tenCrop stores are not ported yet "
+                                  "(ROADMAP A14)")
+    if d.pack_path:
+        raise NotImplementedError(".lstcpack stores are not ported yet "
+                                  "(ROADMAP A6)")
+    if d.transfer_dtype != "float32":
+        raise NotImplementedError(
+            f"data.transfer_dtype={d.transfer_dtype!r}: batches travel as "
+            "float32; a narrower wire type is ROADMAP A19")
+
+
+class Trainer:
+    """Owns dataset, state, step and eval scorer for one config, on
+    ``device`` (the card unless told the CPU).
+
+    ``store`` / ``test_videos``: reuse a feature store (any object with
+    ``get`` and ``n_clips``) and a test split instead of opening
+    ``data.h5_path`` and reading ``data.test_txt``."""
+
+    def __init__(self, cfg: TrainConfig, logger=None, store=None,
+                 test_videos=None, device="cuda"):
+        _check_supported(cfg)
+        self.cfg = cfg
+        self.logger = logger or logging.getLogger("lstc_vad_tpu_torch")
+        self.device = resolve_device(device)
+        self.best_params = None  # snapshot at the best gate AUC (fit)
+        self.eval_seconds = 0.0  # host wall time spent in evaluate()
+        d = cfg.data
+
+        records = (load_train_records(d.dataset, d.train_txt)
+                   if d.train_txt else [])
+        if not records:
+            raise ValueError("training requires data.train_txt")
+        if cfg.eval_train_split and not d.test_mask_dir:
+            # fail fast: the first train-split eval otherwise surfaces this
+            # as a FileNotFoundError AFTER inter_epoch epochs of compute
+            raise ValueError(
+                "eval_train_split=True scores abnormal train videos against "
+                "frame masks (Train/spatio_transformer_shanghaitech.py:"
+                "148-168): set data.test_mask_dir or eval_train_split=False")
+        if store is not None:
+            self.store = store
+        else:
+            self.store = FeatureStore(
+                d.h5_path, eager_keys=[r.key for r in records] if d.eager
+                else None)
+        pseudo = (load_pseudo_labels(d.pseudo_labels_path)
+                  if d.pseudo_labels_path else None)
+        self.dataset = PairedTrainDataset(
+            records, self.store, part_num=d.part_num, part_len=d.part_len,
+            n_patch=d.n_patch, sample=d.sample, pseudo_labels=pseudo,
+            seed=d.seed)
+        self.train_records = records
+        self._train_masks: Dict[str, np.ndarray] = {}
+
+        # in-training eval re-scores the split every inter_epoch epochs:
+        # with data.eager (SHT/UBnormal presets) memoize its features
+        if test_videos is not None:
+            self.test_videos = test_videos
+        else:
+            self.test_videos = load_test_videos(
+                d.dataset, d.test_txt, self.store, mask_dir=d.test_mask_dir,
+                cache=d.eager) if d.test_txt else []
+
+        self.state = create_train_state(cfg, self.device)
+        self.step_fn = make_train_step(cfg)
+        enc, head = self.state.encoder, self.state.head
+        if cfg.model.startswith("stn"):
+            # kind: an n_layers==1 classifier head scores P(abnormal)
+            self.scorer = ClipScorer(enc, head, d.n_patch, kind=cfg.head.kind)
+        else:
+            self.scorer = PartScorer(enc, head, d.part_len, d.n_patch,
+                                     tail_rewindow=cfg.eval_tail_rewindow)
+
+    # ---------------------------------------------------------------- eval
+
+    def _test_items(self):
+        return [((lambda v=v: v.feat), v.anno) for v in self.test_videos]
+
+    def _train_items(self):
+        """Train-split eval: abnormal videos use the frame mask GT
+        (Train/spatio_transformer_shanghaitech.py:148-168), read once and
+        kept: fit() evaluates the split every inter_epoch epochs."""
+        d = self.cfg.data
+        items = []
+        for r in self.train_records:
+            anno = None
+            if r.is_abnormal:
+                anno = self._train_masks.get(r.key)
+                if anno is None:
+                    anno = self._train_masks[r.key] = np.load(
+                        os.path.join(d.test_mask_dir, r.key + ".npy"))
+            items.append(((lambda key=r.key: self.store.get(key)), anno))
+        return items
+
+    def evaluate(self, split: str = "test") -> float:
+        """Frame AUC of the current weights on ``split`` ("test" or
+        "train"), in eval mode."""
+        cfg, d = self.cfg, self.cfg.data
+        self.state.encoder.eval()
+        self.state.head.eval()
+        items = self._test_items() if split == "test" else self._train_items()
+        t0 = time.perf_counter()
+        evaluate = evaluate_stn if cfg.model.startswith("stn") \
+            else evaluate_ltn
+        auc = evaluate(self.scorer, items, d.segment_len)
+        self.eval_seconds += time.perf_counter() - t0
+        return auc
+
+    # ---------------------------------------------------------------- train
+
+    def train_epoch(self) -> Dict[str, float]:
+        """One pass over the paired dataset.  Returns the last step's
+        metrics, ``snippets_per_sec``, ``seconds`` (host wall time, batch
+        building included) and ``batches``."""
+        d = self.cfg.data
+        batches = Prefetcher(
+            BatchIterator(self.dataset, d.batch_size, drop_last=True),
+            self.device)
+        snippets_per_batch = 2 * d.batch_size * d.part_num * d.part_len
+        metrics = {}
+        log_every = self.cfg.log_every_step
+        n = 0
+        t0 = time.perf_counter()
+        for batch in batches:
+            self.state, metrics = self.step_fn(self.state, *batch)
+            n += 1
+            if log_every and n % log_every == 0:
+                # per-iteration loss lines like the reference
+                # (spatio_transformer_shanghaitech.py:111-112); each waits
+                # for the device, so off by default
+                self.logger.info(
+                    "[iter %d] %s", self.state.step,
+                    {k: round(float(v), 4) for k, v in metrics.items()})
+        # reading the metrics waits for the last step: inside the timing
+        metrics = {k: float(v) for k, v in metrics.items()}
+        seconds = time.perf_counter() - t0
+        self.dataset.shuffle_keys()
+        out = dict(metrics)
+        if n:
+            out["snippets_per_sec"] = n * snippets_per_batch / max(seconds,
+                                                                   1e-9)
+        return out | {"seconds": seconds, "batches": n}
+
+    def _emit_metrics(self, record: Dict):
+        """One JSON line per record in ``cfg.metrics_jsonl`` (off when
+        empty)."""
+        path = self.cfg.metrics_jsonl
+        if not path:
+            return
+        with open(path, "a") as f:
+            f.write(json.dumps({"ts": round(time.time(), 3), **record}) + "\n")
+
+    # ------------------------------------------------------------ ckpt
+
+    def params(self) -> Dict[str, Dict]:
+        """The encoder's and head's state_dicts (live tensors)."""
+        return {"encoder": self.state.encoder.state_dict(),
+                "head": self.state.head.state_dict()}
+
+    def save_state(self, path: str):
+        """Full resumable state: params, Adagrad accumulators, step and seed
+        (the reference saves bare state_dicts and restarts its schedule on
+        resume)."""
+        save_checkpoint(path, self.state)
+
+    def restore_state(self, path: str):
+        self.state = load_checkpoint(path, self.state)
+
+    def fit(self, epochs: Optional[int] = None) -> TrainResult:
+        cfg = self.cfg
+        result = TrainResult()
+        epochs = cfg.epochs if epochs is None else epochs
+        for epoch in range(epochs):
+            m = self.train_epoch()
+            result.steps += m.pop("batches")
+            self.logger.info("[epoch %d] %s", epoch,
+                             {k: round(v, 4) for k, v in m.items()})
+            self._emit_metrics({"kind": "train", "epoch": epoch,
+                                "step": self.state.step, **m})
+            if epoch % cfg.inter_epoch == 0 or epoch == epochs - 1:
+                auc_test = self.evaluate("test") if self.test_videos else 0.0
+                auc_train = (self.evaluate("train")
+                             if cfg.eval_train_split else 0.0)
+                entry = {"epoch": epoch, "auc_test": auc_test,
+                         "auc_train": auc_train, **m}
+                result.history.append(entry)
+                self._emit_metrics({"kind": "eval", **entry})
+                # the reference gates saving on the train-split AUC for SHT
+                # (spatio_transformer_shanghaitech.py:177-191) and on test AUC
+                # otherwise (spatio_transformer_UCF.py:139-149)
+                gate = auc_train if cfg.eval_train_split else auc_test
+                prev_best = (result.best_train_auc if cfg.eval_train_split
+                             else result.best_test_auc)
+                improved = gate > prev_best
+                if auc_test > result.best_test_auc:
+                    result.best_test_auc = auc_test
+                    result.best_test_epoch = epoch
+                if auc_train > result.best_train_auc:
+                    result.best_train_auc = auc_train
+                    result.best_train_epoch = epoch
+                if improved:
+                    # co-teaching regenerates pseudo labels from the BEST
+                    # weights (spatio_transformer_MIL_CE.py:392-396); copies,
+                    # since the next step updates the live tensors in place
+                    self.best_params = {
+                        name: {k: v.detach().clone() for k, v in sd.items()}
+                        for name, sd in self.params().items()}
+                if improved and gate > cfg.save_threshold:
+                    path = os.path.join(
+                        cfg.model_save_dir,
+                        f"{cfg.data.dataset}_{cfg.model}_{gate:.4f}")
+                    self.logger.info("saving model to %s", path)
+                    save_checkpoint(path, self.params())
+                self.logger.info(
+                    "[epoch %d] test AUC %.4f (best %.4f @%d) "
+                    "train AUC %.4f (best %.4f @%d)", epoch, auc_test,
+                    result.best_test_auc, result.best_test_epoch, auc_train,
+                    result.best_train_auc, result.best_train_epoch)
+        return result
+
+
+def train(cfg: TrainConfig, epochs: Optional[int] = None, logger=None,
+          device="cuda") -> TrainResult:
+    return Trainer(cfg, logger=logger, device=device).fit(epochs)

@@ -5,9 +5,13 @@
 sequence length the models use, with the JAX test's tolerance
 (tests/test_pallas_attention.py:26-27).  On the CPU the kernel's wrapper
 runs the plain version; the kernel itself is checked on the card by
-tests/test_torch_cuda_kernel.py and chip_smoke.py.
+tests/test_torch_cuda_kernel.py and chip_smoke.py.  The wrapper's autograd
+Function (forward: the kernel; backward: autograd through plain_sdpa) is
+held against plain autograd and against jax.grad of the Pallas kernel's
+custom VJP at rtol 1e-4 / atol 1e-5 (tests/test_pallas_attention.py:56-57).
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -177,3 +181,64 @@ def test_kernel_checks_reject_what_the_kernel_does_not_take(bad):
         bias = torch.zeros(2, 129, 129)
     with pytest.raises((TypeError, ValueError)):
         cuda_attention._check(q, q, q, bias, 4.0)
+
+
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("length", [10, 17, 49])
+def test_kernel_function_gradients_match_plain_and_jax(length, with_bias):
+    """The kernel's autograd Function (its CPU path) against autograd
+    through plain_sdpa and against jax.grad of the Pallas kernel in
+    interpret mode (its custom VJP), with q, k, v as the encoder's strided
+    views and a bias that requires grad."""
+    rng = np.random.default_rng(length)
+    b, h, d = 3, 2, 32
+    bufs = [rng.standard_normal((b, length, h, d)).astype(np.float32)
+            for _ in range(3)]
+    bias = (rng.standard_normal((h, length, length)).astype(np.float32)
+            if with_bias else None)
+    w = rng.standard_normal((b, h, length, d)).astype(np.float32)
+    temp = float(np.sqrt(d))
+
+    def grads(fn):
+        leaves = [torch.from_numpy(x).requires_grad_() for x in bufs]
+        q, k, v = (x.transpose(1, 2) for x in leaves)
+        tb = torch.from_numpy(bias).requires_grad_() if with_bias else None
+        out = fn(q, k, v, tb, temp)
+        assert out.grad_fn is not None
+        wrt = leaves + ([tb] if with_bias else [])
+        return torch.autograd.grad((out * torch.from_numpy(w)).sum(), wrt)
+
+    ours = grads(cuda_attention.attention)
+    plain = grads(lambda q, k, v, tb, t: plain_sdpa(q, k, v, t, bias=tb))
+
+    def jax_objective(q, k, v, *bias_arg):
+        out = pallas_sdpa(q, k, v, temp, bias=bias_arg[0] if bias_arg
+                          else None, interpret=True)
+        return (out * w).sum()
+
+    heads = [x.transpose(0, 2, 1, 3) for x in bufs]
+    args = heads + ([bias] if with_bias else [])
+    ref = jax.grad(jax_objective, argnums=tuple(range(len(args))))(*args)
+    ref = [np.asarray(g).transpose(0, 2, 1, 3) for g in ref[:3]] + [
+        np.asarray(g) for g in ref[3:]]
+    assert len(ours) == len(plain) == len(ref)
+    for a, p, r in zip(ours, plain, ref):
+        np.testing.assert_allclose(a.numpy(), p.numpy(), rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL)
+        np.testing.assert_allclose(a.numpy(), r, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL)
+
+
+def test_kernel_function_is_forward_only_under_inference_mode():
+    q, k, v, bias = (torch.from_numpy(a) for a in _inputs(6, 2, 2, 17, 32,
+                                                          True))
+    q.requires_grad_()
+    with torch.inference_mode():
+        out = sdpa(q, k, v, 4.0, bias=bias)
+    assert out.grad_fn is None and not out.requires_grad
+    out = sdpa(q, k, v, 4.0, bias=bias)
+    assert out.grad_fn is not None
+    assert cuda_attention.launches == 0

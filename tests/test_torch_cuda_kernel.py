@@ -135,3 +135,57 @@ def test_kernel_raises_instead_of_falling_back(card):
         qt = torch.zeros(1, 1, 256, 49, device=card).transpose(-1, -2)
         cuda_attention.attention(qt, qt, qt, None, 16.0)
     assert cuda_attention.launches == before
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("length", [17, 49, 81])
+def test_kernel_backward_gives_the_plain_gradients(card, length, with_bias):
+    """attention(...).sum().backward() through the kernel's autograd
+    Function gives every input a gradient, equal to autograd through
+    plain_sdpa: q, k, v as the encoder's strided views of leaves that
+    require grad, and a bias that requires grad (the gathered RPE table)."""
+    g = torch.Generator(device=card).manual_seed(300 + length)
+    b, h, d = 6, 8, 256
+
+    def leaves():
+        gen = torch.Generator(device=card).manual_seed(300 + length)
+        bufs = [torch.randn(b, length, h, d, device=card, generator=gen)
+                .requires_grad_() for _ in range(3)]
+        bias = (torch.randn(h, length, length, device=card, generator=gen)
+                .requires_grad_() if with_bias else None)
+        return bufs, bias
+
+    w = torch.randn(b, h, length, d, device=card, generator=g)
+    bufs, bias = leaves()
+    before = cuda_attention.launches
+    out = cuda_attention.attention(*(x.transpose(1, 2) for x in bufs), bias,
+                                   16.0)
+    assert out.grad_fn is not None
+    (out * w).sum().backward()
+    torch.cuda.synchronize()
+    assert cuda_attention.launches == before + 1  # the backward launches none
+    ref_bufs, ref_bias = leaves()
+    ref = plain_sdpa(*(x.transpose(1, 2) for x in ref_bufs), 16.0,
+                     bias=ref_bias)
+    (ref * w).sum().backward()
+    pairs = list(zip(bufs, ref_bufs))
+    if with_bias:
+        pairs.append((bias, ref_bias))
+    for x, r in pairs:
+        assert x.grad is not None
+        np.testing.assert_allclose(x.grad.cpu().numpy(),
+                                   r.grad.cpu().numpy(), rtol=RTOL,
+                                   atol=ATOL)
+
+
+def test_sdpa_auto_with_grad_takes_the_kernel_and_keeps_the_graph(card):
+    from lstc_vad_tpu_torch.ops.attention import sdpa
+
+    q, k, v, bias = _inputs(card, 7, 4, 8, 49, 256, True, strided=True)
+    q.requires_grad_()
+    before = cuda_attention.launches
+    out = sdpa(q, k, v, 16.0, bias=bias)
+    assert cuda_attention.launches == before + 1
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert q.grad is not None and torch.isfinite(q.grad).all()

@@ -33,7 +33,16 @@ def test_package_imports_no_jax_and_no_jax_package():
     report = json.loads(res.stdout.strip().splitlines()[-1])
     for mod in ("lstc_vad_tpu_torch.ops.cuda_attention",
                 "lstc_vad_tpu_torch.evaluation.scoring",
-                "lstc_vad_tpu_torch.cli"):
+                "lstc_vad_tpu_torch.cli",
+                "lstc_vad_tpu_torch.objectives.losses",
+                "lstc_vad_tpu_torch.train.optim",
+                "lstc_vad_tpu_torch.train.state",
+                "lstc_vad_tpu_torch.train.steps",
+                "lstc_vad_tpu_torch.train.driver",
+                "lstc_vad_tpu_torch.data.sampler",
+                "lstc_vad_tpu_torch.data.pipeline",
+                "lstc_vad_tpu_torch.data.synthetic",
+                "lstc_vad_tpu_torch.ckpt.io"):
         assert mod in report["imported"]
     bad = [m for m in report["loaded"]
            if m.split(".")[0] in FORBIDDEN_ROOTS
