@@ -8,7 +8,8 @@
    package from the sources in this checkout (one nvcc per source, started
    together).
 2. Kernel phase: the attention kernel against its plain PyTorch version at
-   H=8, D=256 and every sequence length the models use plus the tile edges
+   H=8, D=256 and every sequence length the models use (the co-teaching
+   paths' short tails included: L=17 and 33 at sht_ltn) plus the tile edges
    L=64, 65 and 128 (B=256), at B=2048 and at the main path's own shape,
    with and without bias, and at the main path's shape fed as the encoder
    feeds it (strided views of [B, L, H, D] buffers); the error must stay
@@ -45,7 +46,34 @@
        trains has a gradient on the kernel path.
    Prints a ``train`` JSON line: s/step and snippets/s of steps 2-3, peak
    device memory, the evaluations' wall time, launches, gradient errors.
-6. Prints one JSON line of kernels, then, as the last line,
+6. Co-teaching phase, at full sht_stn and sht_ltn width from seed-0
+   weights, over the same train and test splits:
+   CoTeachingDriver.run(rounds=3, stn_epochs=2, ltn_epochs=2) at the
+   default thresholds (0.9, 0.65), evaluating after every epoch.  The rounds
+   train stn, ltn (on stn_pseudo.npy) and stn_bce (on ltn_pseudo.npy); each
+   artifact holds one entry per train video, of its clip count, each value
+   0 or above its threshold; the kernel launches equal n_layers x the
+   encoder calls of every evaluation and pseudo-label scorer.  Each round's
+   pseudo labels are scored again from the same best weights on the kernel
+   and on an attn_impl="plain" copy: raw scores within 5e-5, and the saved
+   labels of rounds 1 and 2 equal the plain path's thresholded ones apart
+   from entries within 5e-5 of the threshold.  The encoder's CLS output on
+   a few videos, kernel vs plain, must agree within 1e-4 relative (the STN
+   regressor saturates at full width, see CLS_RTOL).  Prints a ``coteach``
+   JSON line per round: walls, s/step, pseudo-label clips/s or parts/s, the
+   share kept, launches, peak device memory, the largest differences.
+7. UCF phase, at full ucf_ltn (final-eval shapes: part_len 2, window_depth
+   2) and ucf_stn width from seed-0 weights, over a synthetic UCF-scale
+   test split (290 videos, 9 patches x 2048, features made per video from
+   the seed when read): evaluate_ucf_ltn through the final-eval
+   UCFBinnedScorer (L=19), evaluate_ucf_stn through UCFClipBinScorer
+   (L=10), and LTN pseudo labels through the generator's UCF branch at the
+   training shape (part_len 3: L=28 and its L=19 tail) over the same videos
+   taken as train records.  Each against an attn_impl="plain" copy: frame
+   (or raw pseudo) scores within 5e-5, AUCs within 1e-4, launches n_layers
+   x encoder calls.  Prints a ``ucf`` JSON line.
+8. Prints each phase's wall time, one JSON line of kernels (launches summed
+   over every path above, and by path), then, as the last line,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed phase raises and the script exits non-zero without that line.
@@ -73,12 +101,17 @@ SCORE_ATOL, AUC_TOL = 5e-5, 1e-4  # main path, kernel vs plain
 # (scripts/torch_train_grad_check.py).  So they are held at 1e-3, above that
 # spread; a missing or wrong gradient is off by O(1).
 LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-3
+# a round's encoder CLS output, kernel vs plain, as norm(diff) / norm: the
+# STN regressor's sigmoid saturates at full width (scores of exactly 0 or
+# 1), so its scores alone would compare equal whatever the attention did.
+# Two accurate f32 forwards differ by ~1e-6 here; a wrong kernel by O(1).
+CLS_RTOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 # the kernel's f32-accurate rate: 3xTF32 is three TF32 tensor-core products
 # (495 TFLOP/s dense) for each f32 one
 F32_FLOP_PER_S = 495e12 / 3
 H, D = 8, 256
-LENGTHS = (10, 17, 19, 28, 49, 64, 65, 81, 128)  # model L and tile edges
+LENGTHS = (10, 17, 19, 28, 33, 49, 64, 65, 81, 128)  # model L, tile edges
 SEED = 0
 
 
@@ -404,6 +437,280 @@ def run_train(cfg, store, test_videos, card: str) -> dict:
         "card": card}
 
 
+def set_up_coteach(cfg_t, root: str):
+    """sht_stn and sht_ltn at full width over the train phase's split and
+    masks, evaluating after every epoch, metrics in one JSON-lines file."""
+    from lstc_vad_tpu_torch.config import preset
+
+    common = {"data.train_txt": cfg_t.data.train_txt,
+              "data.test_mask_dir": cfg_t.data.test_mask_dir,
+              "inter_epoch": 1,
+              "model_save_dir": os.path.join(root, "coteach_ckpt"),
+              "metrics_jsonl": os.path.join(root, "coteach.jsonl")}
+    return preset("sht_stn", **common), preset("sht_ltn", **common)
+
+
+def plain_copy(cfg, encoder, head):
+    """An ``encoder.attn_impl="plain"`` encoder and a head on the encoder's
+    device, holding ``encoder``'s and ``head``'s weights."""
+    from lstc_vad_tpu_torch.config import replace
+    from lstc_vad_tpu_torch.models import build
+
+    device = next(encoder.parameters()).device
+    plain_enc, plain_head = build(
+        replace(cfg, **{"encoder.attn_impl": "plain"}), device=device,
+        seed=SEED)
+    plain_enc.load_state_dict(encoder.state_dict(), strict=True)
+    plain_head.load_state_dict(head.state_dict(), strict=True)
+    return plain_enc, plain_head
+
+
+def pseudo_raw(trainer, store, plain: bool = False):
+    """The round's pseudo-label scores before thresholding (a threshold of
+    -1 keeps every one), from its best weights, through the kernel or
+    (``plain``) plain attention."""
+    from lstc_vad_tpu_torch.pseudo import (generate_ltn_pseudo_labels,
+                                           generate_stn_pseudo_labels,
+                                           pseudo_scorer)
+
+    cfg, d = trainer.cfg, trainer.cfg.data
+    encoder, head = trainer.scoring_modules()
+    if plain:
+        encoder, head = plain_copy(cfg, encoder, head)
+    scorer = pseudo_scorer(cfg, encoder, head)
+    if cfg.model.startswith("stn"):
+        return generate_stn_pseudo_labels(scorer, store,
+                                          trainer.train_records, -1.0)
+    return generate_ltn_pseudo_labels(scorer, store, trainer.train_records,
+                                      -1.0, dataset=d.dataset,
+                                      segment_len=d.segment_len)
+
+
+def cls_err(trainer, store, n_videos: int = 8):
+    """(relative, max abs) difference of the encoder's CLS output between
+    the round's best weights through the kernel and through plain
+    attention, over the first ``n_videos`` train videos' clips (STN) or
+    full parts (LTN)."""
+    import torch
+
+    d = trainer.cfg.data
+    x = np.concatenate([store.get(r.key)[:, :d.n_patch]
+                        for r in trainer.train_records[:n_videos]])
+    if not trainer.cfg.model.startswith("stn"):
+        n = len(x) // d.part_len * d.part_len
+        x = x[:n].reshape(n // d.part_len, d.part_len * d.n_patch, -1)
+    encoder, head = trainer.scoring_modules()
+    plain_enc, _ = plain_copy(trainer.cfg, encoder, head)
+    x = torch.from_numpy(x).to(trainer.device)
+    with torch.inference_mode():
+        kernel, plain = encoder(x)[:, 0], plain_enc(x)[:, 0]
+    diff = kernel - plain
+    return ((diff.norm() / plain.norm()).item(), diff.abs().max().item())
+
+
+def check_labels(labels, plain_raw, tau: float, what: str):
+    """Thresholded ``labels`` against the plain path's raw scores: equal
+    zero patterns and values within SCORE_ATOL, apart from entries within
+    SCORE_ATOL of the threshold ``tau``."""
+    if labels.keys() != plain_raw.keys():
+        raise AssertionError(f"{what}: the labels' videos differ")
+    for key, raw in plain_raw.items():
+        got = labels[key]
+        want = np.where(raw > tau, raw, 0.0)
+        clear = np.abs(raw - tau) > SCORE_ATOL
+        if got.shape != raw.shape or (
+                (got[clear] == 0) != (want[clear] == 0)).any() or (
+                np.abs(got - want)[clear] > SCORE_ATOL).any():
+            raise AssertionError(f"{what}: labels of {key} differ from the "
+                                 "plain path's beyond the threshold edge")
+
+
+def max_dict_err(a: dict, b: dict) -> float:
+    return max(float(np.abs(a[k] - b[k]).max()) for k in b)
+
+
+def run_coteach(cfg_stn, cfg_ltn, store, test_videos, root: str,
+                card: str) -> dict:
+    """Co-teaching phase; raises on any failed check."""
+    from lstc_vad_tpu_torch.data import load_pseudo_labels
+    from lstc_vad_tpu_torch.evaluation.frame_auc import n_parts
+    from lstc_vad_tpu_torch.ops import cuda_attention
+    from lstc_vad_tpu_torch.pseudo import CoTeachingDriver
+
+    driver = CoTeachingDriver(cfg_stn, cfg_ltn, os.path.join(root, "work"),
+                              store=store, test_videos=test_videos)
+    cuda_attention.reset_launches()
+    trainers = driver.run(rounds=3, stn_epochs=2, ltn_epochs=2)
+    launches = cuda_attention.launches
+    n_layers = cfg_stn.encoder.n_layers
+    assert cfg_ltn.encoder.n_layers == n_layers
+    calls = [t.scorer.scorer.n_calls + r["pseudo_encoder_calls"]
+             for t, r in zip(trainers, driver.rounds)]
+    if launches != n_layers * sum(calls) or launches == 0:
+        raise AssertionError(
+            f"co-teaching launched the kernel {launches} times; expected "
+            f"{n_layers} layers x {sum(calls)} evaluation and pseudo-label "
+            "encoder calls")
+    models = [t.cfg.model for t in trainers]
+    if models != ["stn", "ltn", "stn_bce"]:
+        raise AssertionError(f"co-teaching rounds trained {models}")
+    if trainers[1].cfg.data.pseudo_labels_path != driver.stn_pseudo_path \
+            or trainers[2].cfg.data.pseudo_labels_path \
+            != driver.ltn_pseudo_path:
+        raise AssertionError("a round did not read the other network's "
+                             "pseudo labels")
+    records = trainers[0].train_records
+    clips = {r.key: store.n_clips(r.key) for r in records}
+    artifacts = {}
+    for path, tau in ((driver.stn_pseudo_path, driver.stn_threshold),
+                      (driver.ltn_pseudo_path, driver.ltn_threshold)):
+        labels = artifacts[path] = load_pseudo_labels(path)
+        if {k[:-4] for k in labels} != set(clips) or any(
+                len(v) != clips[k[:-4]] or not ((v == 0) | (v > tau)).all()
+                for k, v in labels.items()):
+            raise AssertionError(f"{path}: not one entry of clip length per "
+                                 f"train video, each 0 or above {tau}")
+    # every round's pseudo labels again from its best weights, kernel vs
+    # plain; rounds 1 and 2 wrote the artifacts left on disk
+    with open(cfg_stn.metrics_jsonl) as f:
+        epochs = [r for r in map(json.loads, f) if r["kind"] == "train"]
+    rows = []
+    for i, (trainer, rec) in enumerate(zip(trainers, driver.rounds)):
+        kernel = pseudo_raw(trainer, store)
+        plain = pseudo_raw(trainer, store, plain=True)
+        err = max_dict_err(kernel, plain)
+        if err > SCORE_ATOL:
+            raise AssertionError(f"round {i}: pseudo-label scores differ "
+                                 f"from the plain path by {err}")
+        cls_rel, cls_abs = cls_err(trainer, store)
+        if not cls_rel <= CLS_RTOL:
+            raise AssertionError(f"round {i}: the encoder's CLS output "
+                                 f"differs from the plain path by {cls_rel} "
+                                 f"relative (limit {CLS_RTOL})")
+        tau = (driver.stn_threshold if trainer.cfg.model.startswith("stn")
+               else driver.ltn_threshold)
+        if i:
+            check_labels(artifacts[driver.stn_pseudo_path if i == 2
+                                   else driver.ltn_pseudo_path],
+                         plain, tau, f"round {i}")
+        stn = trainer.cfg.model.startswith("stn")
+        units = sum(clips.values()) if stn else sum(
+            n_parts(n, trainer.cfg.data.part_len) for n in clips.values())
+        seconds = [r["seconds"] for r in epochs[2 * i:2 * i + 2]]
+        rows.append({
+            "round": i, "model": trainer.cfg.model,
+            "wall_s": rec["fit_seconds"] + rec["pseudo_seconds"],
+            "fit_s": rec["fit_seconds"], "epoch_seconds": seconds,
+            "s_per_step": seconds[-1], "eval_wall_s": trainer.eval_seconds,
+            "pseudo_wall_s": rec["pseudo_seconds"],
+            "pseudo_unit": "clips" if stn else "parts",
+            "pseudo_units": units,
+            "pseudo_units_per_s": units / rec["pseudo_seconds"],
+            "kept": rec["kept"], "threshold": tau,
+            "encoder_calls": calls[i], "launches": n_layers * calls[i],
+            "peak_gb": (rec["peak_bytes"] / 2 ** 30
+                        if rec["peak_bytes"] is not None else None),
+            "max_abs_score_err": err, "cls_rel_err": cls_rel,
+            "cls_max_abs_err": cls_abs})
+    return {"rounds": rows, "launches": launches, "card": card}
+
+
+def run_ucf(card: str) -> dict:
+    """UCF phase; raises on any failed check."""
+    from lstc_vad_tpu_torch.config import preset
+    from lstc_vad_tpu_torch.data.synthetic import ucf_test_split
+    from lstc_vad_tpu_torch.evaluation.drivers import (evaluate_ucf_ltn,
+                                                       evaluate_ucf_stn)
+    from lstc_vad_tpu_torch.evaluation.frame_auc import (part_bounds,
+                                                         ucf_bin_edges,
+                                                         ucf_part_plan)
+    from lstc_vad_tpu_torch.evaluation.scoring import (UCFClipBinScorer,
+                                                       ucf_final_eval_scorer,
+                                                       ucf_final_eval_shapes)
+    from lstc_vad_tpu_torch.models import build
+    from lstc_vad_tpu_torch.ops import cuda_attention
+    from lstc_vad_tpu_torch.pseudo import (generate_ltn_pseudo_labels,
+                                           pseudo_scorer)
+
+    t0 = time.perf_counter()
+    store, videos, records = ucf_test_split(SEED)
+    # final and STN evals bin n_frames // 16 clips (cli.py cmd_evaluate)
+    items = [(v.loader, v.anno, v.n_frames // 16) for v in videos]
+    out = {"videos": len(videos), "clips": sum(store.clips.values()),
+           "split_made_s": time.perf_counter() - t0}
+
+    def ltn_eval(enc, head, cfg):
+        scorer = ucf_final_eval_scorer(cfg, enc, head)
+        auc, scores = evaluate_ucf_ltn(scorer, items, cfg.data.segment_len,
+                                       return_scores=True)
+        return scorer, auc, scores, len(videos) * len(
+            ucf_part_plan(cfg.max_clips, cfg.data.part_len))
+
+    def stn_eval(enc, head, cfg):
+        # the Trainer's UCF STN scorer, as cmd_evaluate uses it
+        scorer = UCFClipBinScorer(enc, head, cfg.data.n_patch, cfg.max_clips)
+        auc, scores = evaluate_ucf_stn(scorer, items, cfg.data.segment_len,
+                                       return_scores=True)
+        bins = sum(int(np.count_nonzero(np.diff(
+            ucf_bin_edges(n, cfg.max_clips)))) for _, _, n in items)
+        return scorer, auc, scores, bins
+
+    def pseudo(enc, head, cfg):
+        scorer = pseudo_scorer(cfg, enc, head)
+        raw = generate_ltn_pseudo_labels(scorer, store, records, -1.0,
+                                         dataset="UCF",
+                                         segment_len=cfg.data.segment_len)
+        return (scorer, None, raw, len(records) * len(
+            part_bounds(cfg.max_clips, cfg.data.part_len)))
+
+    paths = (("ltn_eval", ucf_final_eval_shapes(preset("ucf_ltn")), ltn_eval,
+              "parts"),
+             ("stn_eval", preset("ucf_stn"), stn_eval, "bins"),
+             ("pseudo", preset("ucf_ltn"), pseudo, "parts"))
+    total = 0
+    for name, cfg, fn, unit in paths:
+        enc, head = build(cfg, device="cuda", seed=SEED)
+        cuda_attention.reset_launches()
+        t0 = time.perf_counter()
+        scorer, auc, scores, units = fn(enc, head, cfg)
+        wall = time.perf_counter() - t0
+        launches = cuda_attention.launches
+        calls = scorer.scorer.n_calls
+        if launches != cfg.encoder.n_layers * calls or launches == 0:
+            raise AssertionError(f"ucf {name}: {launches} kernel launches "
+                                 f"for {calls} encoder calls")
+        plain_enc, plain_head = plain_copy(cfg, enc, head)
+        del enc, head, scorer
+        _, plain_auc, plain_scores, _ = fn(plain_enc, plain_head, cfg)
+        del plain_enc, plain_head
+        if cuda_attention.launches != launches:
+            raise AssertionError(f"ucf {name}: the plain path launched the "
+                                 "kernel")
+        if auc is None:  # raw pseudo-label scores, thresholded at 0.65
+            err = max_dict_err(scores, plain_scores)
+            check_labels({k: np.where(v > 0.65, v, 0.0)
+                          for k, v in scores.items()}, plain_scores, 0.65,
+                         "ucf pseudo labels")
+            row = {"kept_at_0.65": float(np.mean(np.concatenate(
+                list(scores.values())) > 0.65))}
+        else:
+            err = max((float(np.abs(a - b).max()) for a, b in
+                       zip(scores, plain_scores) if len(a)), default=0.0)
+            if not np.isfinite(auc) or abs(auc - plain_auc) > AUC_TOL:
+                raise AssertionError(f"ucf {name}: AUC {auc} vs plain "
+                                     f"{plain_auc} (limit {AUC_TOL})")
+            row = {"auc": auc, "plain_auc": plain_auc}
+        if err > SCORE_ATOL:
+            raise AssertionError(f"ucf {name}: scores differ from the "
+                                 f"plain path by {err} (limit {SCORE_ATOL})")
+        total += launches
+        out[name] = {**row, unit: units, "wall_s": wall,
+                     f"{unit}_per_s": units / wall, "encoder_calls": calls,
+                     "launches": launches, "max_abs_score_err": err}
+    out.update(launches=total, card=card)
+    return out
+
+
 def run_eval(encoder, head, cfg, items):
     from lstc_vad_tpu_torch.evaluation.drivers import evaluate_ltn
     from lstc_vad_tpu_torch.evaluation.scoring import PartScorer
@@ -441,7 +748,8 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build()
     built = ", ".join(sorted(logs)) or "nothing (up to date)"
-    print(f"build: {time.perf_counter() - t0:.1f} s for {built}")
+    walls = {"build": time.perf_counter() - t0}
+    print(f"build: {walls['build']:.1f} s for {built}")
     for name, log in logs.items():
         for line in ptxas_lines(log):
             print(f"  {name}: {line}")
@@ -460,6 +768,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
 
     # -- kernel phase -----------------------------------------------------
+    t0 = time.perf_counter()
     shapes = [(256, n) for n in LENGTHS] + [(2048, 49), (main_b, main_len)]
     cases = [(b, n, with_bias, False) for b, n in shapes
              for with_bias in (False, True)]
@@ -470,8 +779,10 @@ def main() -> int:
         rows.append(row)
         print("kernel " + json.dumps(row))
     main_row = rows[-1]
+    walls["kernel"] = time.perf_counter() - t0
 
     # -- slice phase: the main path ---------------------------------------
+    t0 = time.perf_counter()
     cuda_attention.reset_launches()
     auc, scores, wall, n_calls = run_eval(encoder, head, cfg, items)
     launches = cuda_attention.launches
@@ -512,16 +823,20 @@ def main() -> int:
         "warm_wall_s": warm_wall, "warm_parts_per_s": n_parts / warm_wall,
         "plain_wall_s": plain_wall, "plain_parts_per_s": n_parts / plain_wall,
         "card": card}))
+    walls["slice"] = time.perf_counter() - t0
 
     # -- autograd phase: the kernel's gradient ------------------------------
+    t0 = time.perf_counter()
     grad_rows = [check_autograd(256, n, dev, False) for n in (17, 49, 81)]
     grad_rows.append(check_autograd(main_b, main_len, dev, True))
     for row in grad_rows:
         print("autograd " + json.dumps(row))
+    walls["autograd"] = time.perf_counter() - t0
 
-    # -- train phase ------------------------------------------------------
+    # -- train and co-teaching phases ---------------------------------------
     from lstc_vad_tpu_torch.data.synthetic import as_test_videos
 
+    test_videos = as_test_videos(items)
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
         cfg_t, store = set_up_train(
@@ -530,22 +845,40 @@ def main() -> int:
               f"{sum(f.shape[0] for f in store.feats.values())} clips, "
               f"{store.nbytes / 2 ** 30:.2f} GiB of host RAM, made in "
               f"{time.perf_counter() - t0:.1f} s")
-        train = run_train(cfg_t, store, as_test_videos(items), card)
-    print("train " + json.dumps(train))
+        train = run_train(cfg_t, store, test_videos, card)
+        print("train " + json.dumps(train))
+        walls["train"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        coteach = run_coteach(*set_up_coteach(cfg_t, root), store,
+                              test_videos, root, card)
+        print("coteach " + json.dumps(coteach))
+        walls["coteach"] = time.perf_counter() - t0
+    del store
+    torch.cuda.empty_cache()
+
+    # -- UCF phase --------------------------------------------------------
+    t0 = time.perf_counter()
+    ucf = run_ucf(card)
+    print("ucf " + json.dumps(ucf))
+    walls["ucf"] = time.perf_counter() - t0
+    print("walls " + json.dumps(walls))
 
     max_err = max(r["max_abs_err"] for r in rows)  # over every shape checked
+    by_path = {"slice": launches, "fit_evals": train["fit_launches"],
+               "fit_steps": 0,
+               "dropout0_step": train["dropout0"]["launches"],
+               "coteach": coteach["launches"], "ucf": ucf["launches"]}
     print(json.dumps({"kernels": [{
         "name": "attention", "route": "cuda",
         "source": "lstc_vad_tpu_torch/csrc/attention.cu",
         "replaces": "lstc_vad_tpu/ops/pallas_attention.py:50",
-        "launches": launches,
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": max_err, "max_err": max_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
-        "train_launches": {"fit_evals": train["fit_launches"],
-                           "fit_steps": 0,
-                           "dropout0_step": train["dropout0"]["launches"]},
         "shape": {k: main_row[k]
                   for k in ("B", "H", "L", "D", "bias", "strided")},
         "card": card}]}))

@@ -1,4 +1,4 @@
-"""Synthetic ShanghaiTech-scale splits, made in memory from a numpy seed.
+"""Synthetic ShanghaiTech- and UCF-Crime-scale splits, made from a numpy seed.
 
 For runs on a machine that holds neither the dataset nor h5py.  Each clip is
 16 patches x 2048 I3D-width f32 features; each abnormal video carries a
@@ -11,11 +11,22 @@ random too, so an AUC measures nothing but agreement between two runs.
 - Train split (``sht_train_split``): 238 videos, 175 normal and 63 abnormal,
   the size of SH_Train_new.txt (SURVEY.md §2.7).  The real train videos'
   lengths are not in the repo: their clip counts are drawn from
-  ``TRAIN_CLIPS`` (40-110, mean 75), a stand-in range.  That is about 17,500
-  clips (17,521 at seed 0), 2.1 GiB of f32 features in host RAM.  ``write_train_files`` writes
-  the ``key,label`` list and the abnormal videos' ``<key>.npy`` masks, so a
-  Trainer reads the split through its usual ``data.train_txt`` /
+  ``TRAIN_CLIPS`` (40-110, mean 75), a stand-in range.  That is about
+  17,800 clips (17,840 at seed 0), 2.2 GiB of f32 features in host RAM.
+  ``write_train_files`` writes the ``key,label`` list and the abnormal
+  videos' ``<key>.npy`` masks, so a Trainer reads the split through its usual ``data.train_txt`` /
   ``data.test_mask_dir`` and a ``SyntheticStore`` passed as ``store=``.
+- UCF test split (``ucf_test_split``): 290 videos (150 normal, 140 abnormal,
+  as UCF-Crime's test list) of 9 patches x 2048 features.  The real test
+  videos' lengths are not in the repo: their clip counts are drawn from
+  ``UCF_TEST_CLIPS`` (16-464, mean 240), a stand-in range: 73,082 clips at
+  seed 0, 5.4 GB of f32 features if held at once.  So each video's features
+  are made when its loader is called, from (seed, index), uniform in [0, 1) (the
+  I3D features are non-negative; uniform draws are also four times quicker
+  to make than normal ones), and dropped after use.  Each video carries
+  ``n_frames = 16 * clips + (0..15)`` and, if abnormal, a per-frame mask
+  with one anomalous interval.  The same videos serve as train records
+  (``TrainRecord`` with ``n_frames``) for UCF pseudo-label generation.
 """
 
 from __future__ import annotations
@@ -32,6 +43,8 @@ N_VIDEOS, N_NORMAL = 107, 63
 N_TRAIN, N_TRAIN_NORMAL = 238, 175
 TRAIN_CLIPS = (40, 111)  # [low, high) clips per train video: a stand-in
 N_PATCH, D_FEAT, SEGMENT_LEN = 16, 2048, 16
+N_UCF_TEST, N_UCF_NORMAL, UCF_N_PATCH = 290, 150, 9
+UCF_TEST_CLIPS = (16, 465)  # [low, high) clips per UCF test video: a stand-in
 
 
 class SyntheticStore:
@@ -50,6 +63,25 @@ class SyntheticStore:
     @property
     def nbytes(self) -> int:
         return sum(f.nbytes for f in self.feats.values())
+
+
+class LazyStore:
+    """``FeatureStore``'s ``get`` / ``n_clips`` over features made on each
+    ``get`` from (seed, the video's index): nothing is held."""
+
+    def __init__(self, seed: int, clips: Dict[str, int], n_patch: int):
+        self.seed = seed
+        self.clips = clips
+        self.n_patch = n_patch
+        self._index = {key: i for i, key in enumerate(clips)}
+
+    def get(self, key: str) -> np.ndarray:
+        rng = np.random.default_rng([self.seed, self._index[key]])
+        return rng.random((self.clips[key], self.n_patch, D_FEAT),
+                          dtype=np.float32)
+
+    def n_clips(self, key: str) -> int:
+        return self.clips[key]
 
 
 def _video(rng: np.random.Generator, n_clips: int, abnormal: bool
@@ -110,3 +142,28 @@ def write_train_files(root: str, records: List[TrainRecord],
     for key, mask in masks.items():
         np.save(os.path.join(mask_dir, key + ".npy"), mask)
     return train_txt, mask_dir
+
+
+def ucf_test_split(seed: int = 0) -> Tuple[LazyStore, List[TestVideo],
+                                           List[TrainRecord]]:
+    """(store, test videos with per-frame labels, the same videos as train
+    records)."""
+    rng = np.random.default_rng(seed)
+    clips, annos, n_frames = {}, {}, {}
+    for i in range(N_UCF_TEST):
+        key = (f"Normal_Videos_{i:03d}" if i < N_UCF_NORMAL
+               else f"Anomaly_{i:03d}")
+        n = int(rng.integers(*UCF_TEST_CLIPS))
+        frames = n * SEGMENT_LEN + int(rng.integers(0, SEGMENT_LEN))
+        anno = np.zeros(frames)
+        if i >= N_UCF_NORMAL:
+            start = int(rng.integers(0, frames // 2))
+            anno[start:int(rng.integers(start + SEGMENT_LEN, frames + 1))] = 1
+        clips[key], annos[key], n_frames[key] = n, anno, frames
+    store = LazyStore(seed, clips, UCF_N_PATCH)
+    videos = [TestVideo(key, annos[key], i >= N_UCF_NORMAL, n_frames[key],
+                        clips[key], loader=(lambda key=key: store.get(key)))
+              for i, key in enumerate(clips)]
+    records = [TrainRecord(key, i >= N_UCF_NORMAL, n_frames[key])
+               for i, key in enumerate(clips)]
+    return store, videos, records

@@ -1,5 +1,5 @@
 """Dataset-level evaluation drivers -> frame-level AUC
-(lstc_vad_tpu/evaluation/drivers.py:24-85).
+(lstc_vad_tpu/evaluation/drivers.py:24-85, 122-188).
 
 Each function reproduces one reference eval loop's score/label assembly, with
 the per-part device calls replaced by the batched scorers in
@@ -14,9 +14,10 @@ from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
 
-from .frame_auc import expand_scores_to_frames
-from .metrics import roc_auc
-from .scoring import ClipScorer, PartScorer
+from .frame_auc import expand_scores_to_frames, ucf_expand
+from .metrics import eval_each_part, roc_auc
+from .scoring import (ClipScorer, PartScorer, UCFBinnedScorer,
+                      UCFClipBinScorer)
 
 Item = Tuple[np.ndarray, Optional[np.ndarray]]  # (feats, per-frame anno|None)
 
@@ -75,3 +76,68 @@ def evaluate_ltn(scorer: PartScorer, items: Iterable[Item],
         all_labels.append(lab)
     return _result(all_scores, all_labels, return_scores, return_labels,
                    compute_auc)
+
+
+UCFItem = Tuple[np.ndarray, np.ndarray, int]  # (feats, anno, n_clips)
+
+
+def _ucf_binned(scorer: UCFBinnedScorer, items, segment_len: int):
+    """Per-video (frame scores, frame labels) of the binned UCF eval, each
+    truncated to the shorter of the two."""
+    results = scorer.score_videos([(f, n) for f, _, n in items])
+    for (part_scores, parts, r), (_, anno, _) in zip(results, items):
+        vs = ucf_expand(part_scores, parts, r, anno, segment_len)
+        n = min(len(vs.scores), len(vs.labels))
+        yield vs.scores[:n], vs.labels[:n]
+
+
+def evaluate_ucf_ltn(scorer: UCFBinnedScorer, items: Iterable[UCFItem],
+                     segment_len: int = 16, return_scores: bool = False,
+                     return_labels: bool = False):
+    """UCF binned eval: linspace compression + part grouping
+    (Test/evaluation_UCF.py:44-87 with the scorer's final-eval flags;
+    Train/temporal_transformer_UCF.py:139-172 with in-training flags)."""
+    pairs = list(_ucf_binned(scorer, list(items), segment_len))
+    return _result([s for s, _ in pairs], [lab for _, lab in pairs],
+                   return_scores, return_labels)
+
+
+def evaluate_ucf_per_class(scorer: UCFBinnedScorer, items: Iterable[UCFItem],
+                           class_names, segment_len: int = 16,
+                           n_anomaly_classes: int = 13, logger=None):
+    """Per-anomaly-class breakdown (reference eval_each_part,
+    utils/eval_utils.py:97-122): per-class AUC / PR-AUC / FAR / score gap,
+    plus the Normal class's false-alarm rate.  ``class_names`` aligns with
+    ``items``.  Returns (normal_far, mean_pr_auc)."""
+    scores_dict, labels_dict = {}, {}
+    for (s, lab), cls in zip(_ucf_binned(scorer, list(items), segment_len),
+                             class_names):
+        scores_dict.setdefault(cls, []).extend(s)
+        labels_dict.setdefault(cls, []).extend(lab)
+    return eval_each_part(labels_dict, scores_dict,
+                          n_anomaly_classes=n_anomaly_classes, logger=logger)
+
+
+def evaluate_ucf_stn(scorer: UCFClipBinScorer, items: Iterable[UCFItem],
+                     segment_len: int = 16, return_scores: bool = False,
+                     return_labels: bool = False):
+    """UCF STN eval: per-bin regressor scores expanded x bin width
+    (Train/spatio_transformer_UCF.py:120-137).  Scores and labels assemble
+    per video."""
+    items = list(items)
+    results = scorer.score_videos([(f, n) for f, _, n in items])
+    all_scores, all_labels = [], []
+    for (scores, bin_ids, r), (_, anno, _) in zip(results, items):
+        video_scores, video_labels = [], []
+        for score, i in zip(scores, bin_ids):
+            width = int(r[i + 1] - r[i]) * segment_len
+            lab = np.asarray(anno[r[i] * segment_len:r[i + 1] * segment_len],
+                             dtype=np.float64)
+            n = min(width, len(lab))
+            video_scores.append(np.full(n, score))
+            video_labels.append(lab[:n])
+        all_scores.append(np.concatenate(video_scores) if video_scores
+                          else np.empty(0))
+        all_labels.append(np.concatenate(video_labels) if video_labels
+                          else np.empty(0))
+    return _result(all_scores, all_labels, return_scores, return_labels)

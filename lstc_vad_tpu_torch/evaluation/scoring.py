@@ -1,5 +1,5 @@
-"""Batched scorers for evaluation — PyTorch counterpart of
-lstc_vad_tpu/evaluation/scoring.py:29-288, 320-499.
+"""Batched scorers for evaluation and pseudo labels — PyTorch counterpart of
+lstc_vad_tpu/evaluation/scoring.py:29-288, 320-650.
 
 The reference scores one part per device call in a Python loop
 (Test/evaluation_shanghaitech_ubnormal.py:77-91 — batch size 1, a host sync
@@ -29,8 +29,11 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from .frame_auc import part_slices
+from ..config import replace
+from .frame_auc import (part_bounds, part_slices, ucf_bin_edges, ucf_bin_pool,
+                        ucf_part_plan)
 
 CHUNK = 2048  # parts per device call (a 49-token f32 LTN chunk is ~0.8 GB)
 
@@ -99,9 +102,14 @@ def _read_ahead(feats_list, depth: int = 1):
                 break
 
 
-def _scorer_apply(encoder, head, kind: str, x: torch.Tensor
+def _scorer_apply(encoder, head, kind: str, l2: bool, x: torch.Tensor
                   ) -> torch.Tensor:
-    h = encoder(x.float())
+    x = x.float()
+    if l2:
+        # UCF eval-only quirk: F.normalize(p=2) on the raw features
+        # (Test/evaluation_UCF.py:77), x / max(||x||, 1e-12)
+        x = F.normalize(x, p=2.0, dim=-1, eps=1e-12)
+    h = encoder(x)
     out = head(h[:, 0, :])
     if kind == "classifier":
         return out[:, 1]
@@ -111,13 +119,15 @@ def _scorer_apply(encoder, head, kind: str, x: torch.Tensor
 class VideoScorer:
     """Encoder + head apply over [B, T, d] token batches on the encoder's
     device.  ``kind``: 'regressor' -> out[:, 0], 'classifier' -> probs[:, 1]
-    (abnormal class).  Puts both modules in eval mode.  ``n_calls`` counts
-    the encoder calls (one per dispatched batch)."""
+    (abnormal class).  ``l2_normalize``: divide each token by its L2 norm
+    first (the UCF final eval).  Puts both modules in eval mode.
+    ``n_calls`` counts the encoder calls (one per dispatched batch)."""
 
-    def __init__(self, encoder, head, kind: str):
+    def __init__(self, encoder, head, kind: str, l2_normalize: bool = False):
         self.encoder = encoder.eval()
         self.head = head.eval()
         self.kind = kind
+        self.l2_normalize = l2_normalize
         self.device = next(encoder.parameters()).device
         self.n_calls = 0
 
@@ -140,13 +150,14 @@ class VideoScorer:
         if self.device.type == "cpu":
             with torch.inference_mode():
                 scores = _scorer_apply(self.encoder, self.head, self.kind,
-                                       host).numpy()
+                                       self.l2_normalize, host).numpy()
             return lambda: scores
         if not host.is_pinned():
             host = host.pin_memory()
         with torch.cuda.device(self.device), torch.inference_mode():
             x = host.to(self.device, non_blocking=True)
-            scores = _scorer_apply(self.encoder, self.head, self.kind, x)
+            scores = _scorer_apply(self.encoder, self.head, self.kind,
+                                   self.l2_normalize, x)
             out = torch.empty(scores.shape, dtype=torch.float32,
                               pin_memory=True)
             out.copy_(scores, non_blocking=True)
@@ -365,3 +376,177 @@ class PartScorer:
             for (v, i, _), s in zip(entries, scores):
                 out[v][i] = s
         return list(zip(out, all_counts))
+
+
+class UCFBinnedScorer:
+    """UCF long-video path: linspace-compress to max_clips bins, mean-pool,
+    optional L2 norm, part-chunk in bin space (Test/evaluation_UCF.py:44-85;
+    Train/pseudo_labels_generator_temporal.py:72-107 without re-windowing).
+
+    Returns (part_scores, parts [(beg, end) in bin space], bin_edges r).
+
+    Three reference variants map onto the flags:
+    - final eval (Test/evaluation_UCF.py): l2_normalize=True,
+      tail_rewindow=True, adaptive_bins=False, n_clips from n_frames//16;
+    - in-training eval (Train/temporal_transformer_UCF.py:144-172):
+      l2_normalize=False, tail_rewindow=False, adaptive_bins=True, n_clips
+      from the feature array length;
+    - pseudo-label gen (Train/pseudo_labels_generator_temporal.py:72-107):
+      l2_normalize=False, tail_rewindow=False, adaptive_bins=False."""
+
+    # flush the cross-video groups every this-many accumulated parts: bounds
+    # resident binned arrays to a window (~120 UCF-scale videos) while still
+    # batching far beyond one video per device call
+    _FLUSH_PARTS = 2048
+
+    def __init__(self, encoder, head, part_len: int, n_patch: int,
+                 max_clips: int = 32, l2_normalize: bool = True,
+                 tail_rewindow: bool = True, adaptive_bins: bool = False):
+        self.scorer = VideoScorer(encoder, head, "classifier",
+                                  l2_normalize=l2_normalize)
+        self.part_len = part_len
+        self.n_patch = n_patch
+        self.max_clips = max_clips
+        self.tail_rewindow = tail_rewindow
+        self.adaptive_bins = adaptive_bins
+
+    def score_video(self, feats: np.ndarray, n_clips: int):
+        return self.score_videos([(feats, n_clips)])[0]
+
+    def _plan(self, feats: np.ndarray, n_clips: int):
+        feats = np.ascontiguousarray(feats[:, :self.n_patch, :],
+                                     dtype=np.float32)
+        bins = min(self.max_clips, n_clips) if self.adaptive_bins \
+            else self.max_clips
+        r = ucf_bin_edges(n_clips, bins)
+        binned = ucf_bin_pool(feats, r)
+        parts = (ucf_part_plan(bins, self.part_len) if self.tail_rewindow
+                 else part_bounds(bins, self.part_len))
+        return binned, parts, r
+
+    def score_videos(self, items):
+        """items = [(feats or a zero-arg loader, n_clips)] ->
+        [(part_scores, parts, r)] aligned with items: one device call per
+        token-length group per flush window.
+
+        Groups are flushed every ``_FLUSH_PARTS`` accumulated parts, so the
+        binned arrays of only a window of videos stay resident: the UCF
+        train split is ~1,600 videos, against the one-video-resident
+        streaming the other scorers promise."""
+        items = list(items)
+        metas = []   # (parts, r) per video — small, kept for the return
+        outs: List[np.ndarray] = []
+        groups: Dict[int, List[Tuple[int, int, np.ndarray]]] = {}
+        pending_parts = 0
+        pipe = _Pipeline()  # overlap group N+1's copy with group N's compute
+
+        def flush():
+            nonlocal pending_parts
+            for entries in groups.values():
+                buf = self.scorer.host_buffer(
+                    (len(entries),) + entries[0][2].shape)
+                for j, (_, _, tok) in enumerate(entries):
+                    buf[j] = tok
+                targets = [(v, i) for v, i, _ in entries]
+
+                def sink(scores, targets=targets):
+                    for (v, i), s in zip(targets, scores):
+                        outs[v][i] = s
+
+                pipe.add(self.scorer.score_tokens_async(buf), sink)
+            groups.clear()  # drops the token views -> binned arrays free
+            pending_parts = 0
+
+        for v, (feats, (_, n)) in enumerate(
+                zip(_read_ahead([f for f, _ in items]), items)):
+            binned, parts, r = self._plan(feats, n)
+            del feats  # raw video array: only the pooled ``binned`` is kept
+            metas.append((parts, r))
+            outs.append(np.empty(len(parts), np.float32))
+            d = binned.shape[-1]
+            for i, (beg, end) in enumerate(parts):
+                tok = binned[beg:end].reshape((end - beg) * self.n_patch, d)
+                groups.setdefault(end - beg, []).append((v, i, tok))
+            pending_parts += len(parts)
+            if pending_parts >= self._FLUSH_PARTS:
+                flush()
+        flush()
+        pipe.drain()
+        return [(outs[v], parts, r) for v, (parts, r) in enumerate(metas)]
+
+
+class UCFClipBinScorer:
+    """UCF STN eval: each non-empty bin mean-pooled to ONE clip and scored by
+    the regressor (Train/spatio_transformer_UCF.py:120-135).
+
+    Returns (scores [n_non_empty], bin_ids [n_non_empty], r)."""
+
+    def __init__(self, encoder, head, n_patch: int, max_clips: int = 32):
+        self.scorer = VideoScorer(encoder, head, "regressor")
+        self.n_patch = n_patch
+        self.max_clips = max_clips
+
+    def score_video(self, feats: np.ndarray, n_clips: int):
+        return self.score_videos([(feats, n_clips)])[0]
+
+    def score_videos(self, items):
+        """items = [(feats or a zero-arg loader, n_clips)] ->
+        [(scores, bin_ids, r)].  Every video's pooled bin tokens stream
+        through chunk-sized host buffers, one device call per ``CHUNK``
+        tokens.  A video with no non-empty bin (n_frames < segment_len)
+        scores nothing, as the reference loop moves on
+        (Train/spatio_transformer_UCF.py:123)."""
+        items = list(items)
+        plans = []
+        flat_parts, buf, filled = [], None, 0
+        pipe = _Pipeline()
+        for feats, (_, n_clips) in zip(_read_ahead([f for f, _ in items]),
+                                       items):
+            feats = np.ascontiguousarray(feats[:, :self.n_patch, :],
+                                         dtype=np.float32)
+            r = ucf_bin_edges(n_clips, self.max_clips)
+            bin_ids = [i for i in range(self.max_clips) if r[i] != r[i + 1]]
+            plans.append((np.asarray(bin_ids, np.int64), r))
+            for i in bin_ids:
+                if buf is None:
+                    buf = self.scorer.host_buffer((CHUNK,) + feats.shape[1:])
+                    filled = 0
+                buf[filled] = feats[r[i]:r[i + 1]].mean(axis=0)
+                filled += 1
+                if filled == CHUNK:
+                    pipe.add(self.scorer.score_tokens_async(buf),
+                             flat_parts.append)
+                    buf, filled = None, 0
+            del feats
+        if buf is not None and filled:
+            pipe.add(self.scorer.score_tokens_async(buf[:filled]),
+                     flat_parts.append)
+        pipe.drain()
+        flat = (np.concatenate(flat_parts) if flat_parts
+                else np.empty(0, np.float32))
+        out, cursor = [], 0
+        for bin_ids, r in plans:
+            n = len(bin_ids)
+            out.append((flat[cursor:cursor + n], bin_ids, r))
+            cursor += n
+        return out
+
+
+def ucf_final_eval_shapes(cfg):
+    """The UCF LTN final eval builds the encoder at part_len=2 and its
+    ckpts carry the window_depth=2 RPE table (Test/evaluation_UCF.py:33,42 +
+    README command --part_len 2); any other config is returned as is."""
+    if cfg.data.dataset == "UCF" and not cfg.model.startswith("stn"):
+        return replace(cfg, **{"encoder.window_depth": 2,
+                               "data.part_len": 2})
+    return cfg
+
+
+def ucf_final_eval_scorer(cfg, encoder, head) -> UCFBinnedScorer:
+    """The UCF LTN final-eval scorer (Test/evaluation_UCF.py) for ``cfg``
+    at ``ucf_final_eval_shapes``: fixed max_clips bins (from n_frames // 16
+    in the caller's items), L2-normalized features, tails re-windowed."""
+    d = cfg.data
+    return UCFBinnedScorer(encoder, head, d.part_len, d.n_patch,
+                           max_clips=cfg.max_clips, l2_normalize=True,
+                           tail_rewindow=True)

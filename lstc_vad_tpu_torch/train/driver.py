@@ -5,12 +5,12 @@ Replaces the reference's copy-pasted per-dataset train scripts
 (Train/spatio_transformer_*.py, Train/temporal_transformer_*.py) with one
 parameterized loop: balanced-pair batches through the prefetching pipeline,
 the train step of ``cfg.model``, evaluation every ``inter_epoch`` epochs over
-the test (and optionally train) split, AUC-gated checkpoints.
+the test (and optionally train) split, AUC-gated checkpoints, and an
+asynchronous autosave of the full state every N epochs.
 
-SHT and UBnormal are ported.  Not yet: the UCF scorers and tenCrop stores
-(ROADMAP A14), ``.lstcpack`` stores (A6), a narrower wire type for batches
-(A19), asynchronous autosave (A12) and a device mesh (A18); each raises
-``NotImplementedError``.
+SHT, UBnormal and UCF are ported.  Not yet: tenCrop stores (ROADMAP A14),
+``.lstcpack`` stores (A6), a narrower wire type for batches (A19) and a
+device mesh (A18); each raises ``NotImplementedError``.
 
 Modes: a step puts the modules in train mode (train/steps.py) and
 ``evaluate`` puts them in eval mode, so in-training evaluation runs without
@@ -24,18 +24,21 @@ import json
 import logging
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-from ..ckpt.io import load_checkpoint, save_checkpoint
+from ..ckpt.io import load_checkpoint, save_checkpoint, wait_for_saves
 from ..config import TrainConfig
 from ..data import (BatchIterator, FeatureStore, PairedTrainDataset,
                     Prefetcher, load_pseudo_labels, load_test_videos,
                     load_train_records)
 from ..device import resolve_device
-from ..evaluation.drivers import evaluate_ltn, evaluate_stn
-from ..evaluation.scoring import ClipScorer, PartScorer
+from ..evaluation.drivers import (evaluate_ltn, evaluate_stn,
+                                  evaluate_ucf_ltn, evaluate_ucf_stn)
+from ..evaluation.scoring import (ClipScorer, PartScorer, UCFBinnedScorer,
+                                  UCFClipBinScorer)
+from ..models import build
 from .state import create_train_state
 from .steps import make_train_step
 
@@ -52,10 +55,6 @@ class TrainResult:
 
 def _check_supported(cfg: TrainConfig):
     d = cfg.data
-    if d.dataset == "UCF":
-        raise NotImplementedError("the UCF scorers (UCFBinnedScorer, "
-                                  "UCFClipBinScorer) are not ported yet "
-                                  "(ROADMAP A14)")
     if d.ten_crop:
         raise NotImplementedError("tenCrop stores are not ported yet "
                                   "(ROADMAP A14)")
@@ -74,10 +73,15 @@ class Trainer:
 
     ``store`` / ``test_videos``: reuse a feature store (any object with
     ``get`` and ``n_clips``) and a test split instead of opening
-    ``data.h5_path`` and reading ``data.test_txt``."""
+    ``data.h5_path`` and reading ``data.test_txt`` — co-teaching keeps
+    every round's Trainer alive, and shares them (pseudo/coteach.py).
+
+    ``eval_only``: build no paired dataset and no train step, read the test
+    split lazily, and allow an empty train list (the evaluate and
+    gen-pseudo paths)."""
 
     def __init__(self, cfg: TrainConfig, logger=None, store=None,
-                 test_videos=None, device="cuda"):
+                 test_videos=None, device="cuda", eval_only: bool = False):
         _check_supported(cfg)
         self.cfg = cfg
         self.logger = logger or logging.getLogger("lstc_vad_tpu_torch")
@@ -86,61 +90,109 @@ class Trainer:
         self.eval_seconds = 0.0  # host wall time spent in evaluate()
         d = cfg.data
 
+        if not eval_only and cfg.eval_train_split:
+            # fail fast: the first train-split eval otherwise surfaces this
+            # AFTER inter_epoch epochs of compute
+            if d.dataset == "UCF":
+                raise ValueError("UCF has no train-split evaluation "
+                                 "(set eval_train_split=False)")
+            if not d.test_mask_dir:
+                raise ValueError(
+                    "eval_train_split=True scores abnormal train videos "
+                    "against frame masks (Train/spatio_transformer_"
+                    "shanghaitech.py:148-168): set data.test_mask_dir or "
+                    "eval_train_split=False")
         records = (load_train_records(d.dataset, d.train_txt)
                    if d.train_txt else [])
-        if not records:
+        if not records and not eval_only:
             raise ValueError("training requires data.train_txt")
-        if cfg.eval_train_split and not d.test_mask_dir:
-            # fail fast: the first train-split eval otherwise surfaces this
-            # as a FileNotFoundError AFTER inter_epoch epochs of compute
-            raise ValueError(
-                "eval_train_split=True scores abnormal train videos against "
-                "frame masks (Train/spatio_transformer_shanghaitech.py:"
-                "148-168): set data.test_mask_dir or eval_train_split=False")
         if store is not None:
             self.store = store
         else:
+            eager = d.eager and records and not eval_only
             self.store = FeatureStore(
-                d.h5_path, eager_keys=[r.key for r in records] if d.eager
+                d.h5_path, eager_keys=[r.key for r in records] if eager
                 else None)
-        pseudo = (load_pseudo_labels(d.pseudo_labels_path)
-                  if d.pseudo_labels_path else None)
-        self.dataset = PairedTrainDataset(
-            records, self.store, part_num=d.part_num, part_len=d.part_len,
-            n_patch=d.n_patch, sample=d.sample, pseudo_labels=pseudo,
-            seed=d.seed)
+        self.dataset = None
+        if not eval_only:
+            pseudo = (load_pseudo_labels(d.pseudo_labels_path)
+                      if d.pseudo_labels_path else None)
+            self.dataset = PairedTrainDataset(
+                records, self.store, part_num=d.part_num, part_len=d.part_len,
+                n_patch=d.n_patch, sample=d.sample, pseudo_labels=pseudo,
+                double_short=(d.dataset == "UCF"), seed=d.seed)
         self.train_records = records
         self._train_masks: Dict[str, np.ndarray] = {}
 
         # in-training eval re-scores the split every inter_epoch epochs:
-        # with data.eager (SHT/UBnormal presets) memoize its features
+        # with data.eager (SHT/UBnormal presets) memoize its features; UCF
+        # (eager=False) and one-shot eval_only runs stream
         if test_videos is not None:
             self.test_videos = test_videos
         else:
             self.test_videos = load_test_videos(
                 d.dataset, d.test_txt, self.store, mask_dir=d.test_mask_dir,
-                cache=d.eager) if d.test_txt else []
+                mask_h5=d.test_mask_h5,
+                cache=d.eager and not eval_only) if d.test_txt else []
 
         self.state = create_train_state(cfg, self.device)
-        self.step_fn = make_train_step(cfg)
+        self.step_fn = None if eval_only else make_train_step(cfg)
+        self.scorer = self._build_scorer()
+
+    def _build_scorer(self):
+        cfg, d = self.cfg, self.cfg.data
         enc, head = self.state.encoder, self.state.head
         if cfg.model.startswith("stn"):
+            if d.dataset == "UCF":
+                return UCFClipBinScorer(enc, head, d.n_patch, cfg.max_clips)
             # kind: an n_layers==1 classifier head scores P(abnormal)
-            self.scorer = ClipScorer(enc, head, d.n_patch, kind=cfg.head.kind)
-        else:
-            self.scorer = PartScorer(enc, head, d.part_len, d.n_patch,
-                                     tail_rewindow=cfg.eval_tail_rewindow)
+            return ClipScorer(enc, head, d.n_patch, kind=cfg.head.kind)
+        if d.dataset == "UCF":
+            # in-training eval flags (Train/temporal_transformer_UCF.py)
+            return UCFBinnedScorer(enc, head, d.part_len, d.n_patch,
+                                   max_clips=cfg.max_clips,
+                                   l2_normalize=False, tail_rewindow=False,
+                                   adaptive_bins=True)
+        return PartScorer(enc, head, d.part_len, d.n_patch,
+                          tail_rewindow=cfg.eval_tail_rewindow)
+
+    def scoring_modules(self):
+        """A separate encoder and head on the Trainer's device, in eval
+        mode, holding ``best_params`` (the live weights when no evaluation
+        has improved): what co-teaching scores pseudo labels with, while
+        the Trainer's own modules stay as they are."""
+        cfg = self.cfg
+        params = self.best_params or self.params()
+        encoder, head = build(cfg, device=self.device, seed=cfg.seed)
+        encoder.load_state_dict(params["encoder"], strict=True)
+        head.load_state_dict(params["head"], strict=True)
+        return encoder, head
 
     # ---------------------------------------------------------------- eval
 
     def _test_items(self):
+        d = self.cfg.data
+        if d.dataset == "UCF":
+            # STN in-training eval bins from the annotation frame count
+            # (Train/spatio_transformer_UCF.py:121-122); LTN from the
+            # feature-array clip count (Train/temporal_transformer_UCF.py:
+            # 143-145)
+            stn = self.cfg.model.startswith("stn")
+            return [((lambda v=v: v.feat), v.anno,
+                     v.n_frames // d.segment_len if stn else v.n_clips)
+                    for v in self.test_videos]
         return [((lambda v=v: v.feat), v.anno) for v in self.test_videos]
 
     def _train_items(self):
         """Train-split eval: abnormal videos use the frame mask GT
         (Train/spatio_transformer_shanghaitech.py:148-168), read once and
-        kept: fit() evaluates the split every inter_epoch epochs."""
+        kept: fit() evaluates the split every inter_epoch epochs.
+        SHT/UBnormal only — the reference UCF scripts never evaluate the
+        train split."""
         d = self.cfg.data
+        if d.dataset == "UCF":
+            raise ValueError("UCF has no train-split evaluation "
+                             "(set eval_train_split=False)")
         items = []
         for r in self.train_records:
             anno = None
@@ -160,8 +212,12 @@ class Trainer:
         self.state.head.eval()
         items = self._test_items() if split == "test" else self._train_items()
         t0 = time.perf_counter()
-        evaluate = evaluate_stn if cfg.model.startswith("stn") \
-            else evaluate_ltn
+        if d.dataset == "UCF":
+            evaluate = evaluate_ucf_stn if cfg.model.startswith("stn") \
+                else evaluate_ucf_ltn
+        else:
+            evaluate = evaluate_stn if cfg.model.startswith("stn") \
+                else evaluate_ltn
         auc = evaluate(self.scorer, items, d.segment_len)
         self.eval_seconds += time.perf_counter() - t0
         return auc
@@ -217,20 +273,32 @@ class Trainer:
         return {"encoder": self.state.encoder.state_dict(),
                 "head": self.state.head.state_dict()}
 
-    def save_state(self, path: str):
+    def save_state(self, path: str, asynchronous: bool = False):
         """Full resumable state: params, Adagrad accumulators, step and seed
         (the reference saves bare state_dicts and restarts its schedule on
-        resume)."""
-        save_checkpoint(path, self.state)
+        resume).  ``asynchronous``: return once the state is copied to host
+        memory and write it in the background (ckpt/io.py)."""
+        save_checkpoint(path, self.state, asynchronous=asynchronous)
 
     def restore_state(self, path: str):
+        wait_for_saves()  # a pending autosave may still be writing ``path``
         self.state = load_checkpoint(path, self.state)
 
-    def fit(self, epochs: Optional[int] = None) -> TrainResult:
+    def fit(self, epochs: Optional[int] = None,
+            on_eval: Optional[Callable] = None,
+            autosave_every: Optional[int] = None) -> TrainResult:
+        """``on_eval(trainer, result, entry)`` is called after each
+        evaluation.  ``autosave_every``: save the full state to
+        ``<model_save_dir>/autosave`` every N epochs, asynchronously (restart
+        with ``restore_state`` and continue exactly).  Every save has
+        committed when ``fit`` returns."""
         cfg = self.cfg
         result = TrainResult()
         epochs = cfg.epochs if epochs is None else epochs
         for epoch in range(epochs):
+            if autosave_every and epoch and epoch % autosave_every == 0:
+                self.save_state(os.path.join(cfg.model_save_dir, "autosave"),
+                                asynchronous=True)
             m = self.train_epoch()
             result.steps += m.pop("batches")
             self.logger.info("[epoch %d] %s", epoch,
@@ -276,6 +344,9 @@ class Trainer:
                     "train AUC %.4f (best %.4f @%d)", epoch, auc_test,
                     result.best_test_auc, result.best_test_epoch, auc_train,
                     result.best_train_auc, result.best_train_epoch)
+                if on_eval is not None:
+                    on_eval(self, result, entry)
+        wait_for_saves()  # commit any autosave in flight before returning
         return result
 
 

@@ -10,6 +10,7 @@ the guarantees of the JAX package's lstc_vad_tpu/ckpt/orbax_io.py:
 
 import logging
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -17,7 +18,8 @@ import torch
 
 from fixtures import make_sht_like
 from lstc_vad_tpu_torch.ckpt import io as ckpt_io
-from lstc_vad_tpu_torch.ckpt import load_checkpoint, save_checkpoint
+from lstc_vad_tpu_torch.ckpt import (load_checkpoint, save_checkpoint,
+                                     wait_for_saves)
 from lstc_vad_tpu_torch.config import preset, replace
 from lstc_vad_tpu_torch.models import Encoder
 from lstc_vad_tpu_torch.train import create_train_state, make_train_step
@@ -143,6 +145,74 @@ def test_save_keeps_the_old_checkpoint_until_the_new_one_is_whole(
 def test_missing_checkpoint_raises(tmp_path):
     with pytest.raises(FileNotFoundError):
         load_checkpoint(str(tmp_path / "none.pt"))
+
+
+def test_async_save_copies_before_returning(tmp_path, monkeypatch):
+    """The background write holds the state as it was at the call: a step
+    that updates the parameters and Adagrad's sums in place before the
+    write starts changes nothing in the file."""
+    state = _trained(steps=1)
+    before = {k: v.detach().clone() for k, v in named_params(state).items()}
+    sums = {k: state.optimizer.state[p]["sum"].clone()
+            for k, p in named_params(state).items()}
+    path = str(tmp_path / "state.pt")
+    gate, write = threading.Event(), ckpt_io._write
+
+    def gated_write(payload, dest):
+        assert gate.wait(timeout=60)
+        write(payload, dest)
+
+    monkeypatch.setattr(ckpt_io, "_write", gated_write)
+    save_checkpoint(path, state, asynchronous=True)
+    make_train_step(CFG)(state, *batch(np.random.default_rng(7)))
+    gate.set()  # the write starts after the in-place update
+    wait_for_saves()
+    assert sorted(os.listdir(tmp_path)) == ["state.pt"]
+    restored = load_checkpoint(path, create_train_state(CFG, "cpu", 4))
+    assert restored.step == 1
+    for name, p in named_params(restored).items():
+        assert torch.equal(p, before[name]), name
+        assert torch.equal(restored.optimizer.state[p]["sum"], sums[name])
+
+
+def test_failed_background_write_raises_at_wait(tmp_path, monkeypatch):
+    state = _trained(steps=1)
+    path = str(tmp_path / "state.pt")
+    save_checkpoint(path, state)
+
+    def crash(src, dst):
+        raise OSError("disk full")
+
+    monkeypatch.setattr(ckpt_io, "_replace_keeping_old", crash)
+    save_checkpoint(path, _trained(steps=2), asynchronous=True)
+    with pytest.raises(OSError, match="disk full"):
+        wait_for_saves()
+    wait_for_saves()  # raised once; the failed save is dropped
+    # the committed checkpoint is untouched
+    restored = load_checkpoint(path, create_train_state(CFG, "cpu", 4))
+    _assert_same_state(restored, state)
+
+
+def test_failed_background_write_raises_at_the_next_save(tmp_path,
+                                                        monkeypatch):
+    path = str(tmp_path / "state.pt")
+    calls = []
+
+    def crash_once(src, dst):
+        calls.append(dst)
+        if len(calls) == 1:
+            raise OSError("disk full")
+        os.replace(src, dst)
+
+    monkeypatch.setattr(ckpt_io, "_replace_keeping_old", crash_once)
+    save_checkpoint(path, _trained(steps=1), asynchronous=True)
+    with pytest.raises(OSError, match="disk full"):
+        save_checkpoint(path, _trained(steps=2), asynchronous=True)
+    second = _trained(steps=2)
+    save_checkpoint(path, second, asynchronous=True)
+    wait_for_saves()
+    _assert_same_state(load_checkpoint(path, create_train_state(CFG, "cpu",
+                                                                4)), second)
 
 
 def test_trainer_save_and_restore_state(tmp_path):

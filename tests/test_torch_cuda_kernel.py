@@ -189,3 +189,66 @@ def test_sdpa_auto_with_grad_takes_the_kernel_and_keeps_the_graph(card):
     assert out.grad_fn is not None
     out.sum().backward()
     assert q.grad is not None and torch.isfinite(q.grad).all()
+
+
+def _full_width(card, preset_name, **overrides):
+    """The preset's encoder and head at full width from seed 0, once with
+    the kernel and once with plain attention, holding the same weights."""
+    from lstc_vad_tpu_torch.config import preset, replace
+    from lstc_vad_tpu_torch.models import build
+
+    cfg = preset(preset_name, **overrides)
+    kernel = build(cfg, device=card, seed=0)
+    plain = build(replace(cfg, **{"encoder.attn_impl": "plain"}),
+                  device=card, seed=0)
+    for a, b in zip(kernel, plain):
+        b.load_state_dict(a.state_dict())
+    return cfg, kernel, plain
+
+
+def test_ucf_scorer_pass_takes_the_kernel(card):
+    """The UCF LTN final eval (part_len 2, 32 bins, L2-normalized, L=19)
+    through UCFBinnedScorer: every encoder call launches the kernel once a
+    layer, and the part scores match the plain path within 5e-5."""
+    from lstc_vad_tpu_torch.evaluation.scoring import UCFBinnedScorer
+
+    cfg, kernel, plain = _full_width(card, "ucf_ltn", **{
+        "encoder.window_depth": 2, "data.part_len": 2})
+    rng = np.random.default_rng(0)
+    items = [(rng.random((n, 9, 2048), dtype=np.float32), n)
+             for n in (1, 20, 33, 250)]
+    before = cuda_attention.launches
+    scorer = UCFBinnedScorer(*kernel, 2, 9)
+    got = scorer.score_videos(items)
+    assert cuda_attention.launches - before == \
+        cfg.encoder.n_layers * scorer.scorer.n_calls > 0
+    want = UCFBinnedScorer(*plain, 2, 9).score_videos(items)
+    for (s, parts, _), (ws, wparts, _) in zip(got, want):
+        assert parts == wparts
+        np.testing.assert_allclose(s, ws, rtol=0, atol=5e-5)
+
+
+def test_pseudo_label_pass_takes_the_kernel(card):
+    """LTN pseudo labels at full sht_ltn width without tail re-window
+    (L=49 and the short tails' 17 and 33): raw scores within 5e-5 of the
+    plain path."""
+    from lstc_vad_tpu_torch.data.annotations import TrainRecord
+    from lstc_vad_tpu_torch.data.synthetic import SyntheticStore
+    from lstc_vad_tpu_torch.evaluation.scoring import PartScorer
+    from lstc_vad_tpu_torch.pseudo import generate_ltn_pseudo_labels
+
+    cfg, kernel, plain = _full_width(card, "sht_ltn")
+    rng = np.random.default_rng(1)
+    store = SyntheticStore({f"v{n}": rng.standard_normal(
+        (n, 16, 2048), dtype=np.float32) for n in (2, 13, 40, 71)})
+    records = [TrainRecord(k, i % 2 == 1) for i, k in enumerate(store.feats)]
+    before = cuda_attention.launches
+    scorer = PartScorer(*kernel, 3, 16, tail_rewindow=False)
+    got = generate_ltn_pseudo_labels(scorer, store, records, -1.0)
+    assert cuda_attention.launches - before == \
+        cfg.encoder.n_layers * scorer.scorer.n_calls > 0
+    want = generate_ltn_pseudo_labels(
+        PartScorer(*plain, 3, 16, tail_rewindow=False), store, records, -1.0)
+    for key, labels in want.items():
+        assert got[key].shape == (store.n_clips(key[:-4]),)
+        np.testing.assert_allclose(got[key], labels, rtol=0, atol=5e-5)

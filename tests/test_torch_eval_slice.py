@@ -178,9 +178,9 @@ def test_entry_points_need_a_card_unless_told_cpu(sht):
 
 
 def test_cli_rejects_unported_paths(sht):
-    h5, _, test_txt, mask_dir = sht
-    with pytest.raises(SystemExit, match="UCF"):
-        cli.main(["evaluate", "--preset", "ucf_ltn", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="A14"):
+        cli.main(["evaluate", "--preset", "sht_ltn", "--device", "cpu",
+                  "--set", "data.ten_crop=true"])
     with pytest.raises(SystemExit, match="unknown config path"):
         cli.main(["evaluate", "--preset", "sht_ltn", "--device", "cpu",
                   "--set", "encoder.nope=1"])

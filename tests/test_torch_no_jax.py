@@ -42,7 +42,10 @@ def test_package_imports_no_jax_and_no_jax_package():
                 "lstc_vad_tpu_torch.data.sampler",
                 "lstc_vad_tpu_torch.data.pipeline",
                 "lstc_vad_tpu_torch.data.synthetic",
-                "lstc_vad_tpu_torch.ckpt.io"):
+                "lstc_vad_tpu_torch.ckpt.io",
+                "lstc_vad_tpu_torch.pseudo.generator",
+                "lstc_vad_tpu_torch.pseudo.coteach",
+                "lstc_vad_tpu_torch.evaluation.drivers"):
         assert mod in report["imported"]
     bad = [m for m in report["loaded"]
            if m.split(".")[0] in FORBIDDEN_ROOTS

@@ -118,7 +118,8 @@ def test_metrics_jsonl_best_params_and_iteration_log(sht, tmp_path, caplog):
 
 
 @pytest.mark.parametrize("change,error,match", [
-    ({"data.dataset": "UCF"}, NotImplementedError, "A14"),
+    ({"data.dataset": "UCF", "eval_train_split": True}, ValueError,
+     "UCF has no train-split"),
     ({"data.ten_crop": True}, NotImplementedError, "A14"),
     ({"data.pack_path": "x.lstcpack"}, NotImplementedError, "A6"),
     ({"data.transfer_dtype": "bfloat16"}, NotImplementedError, "A19"),
@@ -130,6 +131,114 @@ def test_trainer_refuses_what_is_not_ported(sht, tmp_path, change, error,
     cfg = preset("sht_ltn", **{**_overrides(sht, tmp_path), **change})
     with pytest.raises(error, match=match):
         Trainer(cfg, device="cpu")
+
+
+def test_eval_only_builds_no_dataset_and_no_step(sht, tmp_path):
+    cfg = preset("sht_ltn", **{**_overrides(sht, tmp_path),
+                               "data.train_txt": ""})
+    trainer = Trainer(cfg, device="cpu", eval_only=True)
+    assert trainer.dataset is None and trainer.step_fn is None
+    assert trainer.train_records == []
+    # the test split streams: nothing is memoized by an evaluation
+    assert np.isfinite(trainer.evaluate("test"))
+    assert all(v._feat is None for v in trainer.test_videos)
+
+
+def test_fit_calls_on_eval_after_each_evaluation(sht, tmp_path):
+    cfg = preset("sht_stn", **{**_overrides(sht, tmp_path), "inter_epoch": 2})
+    trainer = Trainer(cfg, device="cpu")
+    calls = []
+    result = trainer.fit(3, on_eval=lambda *a: calls.append(a))
+    assert [entry["epoch"] for _, _, entry in calls] == [0, 2]
+    assert all(t is trainer and r is result for t, r, _ in calls)
+    assert [entry for _, _, entry in calls] == result.history
+
+
+def test_scoring_modules_hold_the_best_weights_apart(sht, tmp_path):
+    """Pseudo labels are scored by a copy holding ``best_params``; the
+    Trainer's own modules keep their weights and their mode."""
+    cfg = preset("sht_ltn", **_overrides(sht, tmp_path))
+    trainer = Trainer(cfg, device="cpu")
+    trainer.fit(1)
+    live = {k: v.clone() for k, v in trainer.params()["head"].items()}
+    trainer.best_params = {
+        name: {k: v + 1.0 if v.is_floating_point() else v
+               for k, v in sd.items()}
+        for name, sd in trainer.params().items()}
+    trainer.state.head.train()
+    encoder, head = trainer.scoring_modules()
+    assert not encoder.training and not head.training
+    assert encoder is not trainer.state.encoder
+    for name, module in (("encoder", encoder), ("head", head)):
+        for k, v in module.state_dict().items():
+            assert torch.equal(v, trainer.best_params[name][k]), (name, k)
+    for k, v in live.items():
+        assert torch.equal(trainer.params()["head"][k], v), k
+    assert trainer.state.head.training
+
+
+def test_autosave_resume_equals_an_uninterrupted_fit(sht, tmp_path,
+                                                     monkeypatch):
+    """fit(3, autosave_every=1) saves in the background at the top of
+    epochs 1 and 2; restoring that autosave (and the sampler's state at
+    that point) and fitting the last epoch gives the uninterrupted run's
+    parameters exactly.  Each background write is held back until the
+    next evaluation, so the next epoch's steps have updated the live state
+    in place before it starts: the file must still hold the state as it
+    was when the save began."""
+    import copy
+    import threading
+
+    from lstc_vad_tpu_torch.ckpt import io as ckpt_io
+
+    cfg = preset("sht_ltn", **{**_overrides(sht, tmp_path),
+                               **{"encoder.attn_dropout": 0.2,
+                                  "head.dropout": 0.6}})
+    straight = Trainer(cfg, device="cpu")
+    straight.fit(3)
+
+    gate, write = threading.Event(), ckpt_io._write
+
+    def gated_write(payload, dest):
+        assert gate.wait(timeout=60)
+        gate.clear()
+        write(payload, dest)
+
+    monkeypatch.setattr(ckpt_io, "_write", gated_write)
+    autosaved = Trainer(cfg, device="cpu")
+    at_epoch_1 = {}
+
+    def on_eval(trainer, result, entry):
+        if entry["epoch"] == 1:  # the state the epoch-2 autosave writes
+            ds = trainer.dataset
+            at_epoch_1.update(
+                rng=copy.deepcopy(ds.rng), perms=(ds._norm_perm.copy(),
+                                                  ds._abnorm_perm.copy()),
+                params={k: p.detach().clone() for k, p in
+                        named_params(trainer.state).items()})
+        if entry["epoch"] >= 1:
+            gate.set()  # let the autosave of this epoch's top write
+
+    autosaved.fit(3, on_eval=on_eval, autosave_every=1)
+    for name, p in named_params(autosaved.state).items():
+        assert torch.equal(p, named_params(straight.state)[name]), name
+    path = os.path.join(cfg.model_save_dir, "autosave")
+    assert os.path.isfile(path) and not os.path.exists(path + ".next")
+    saved = load_checkpoint(path)
+    assert saved["step"] == 2
+    for name, want in at_epoch_1["params"].items():
+        group, key = name.split(".", 1)
+        assert torch.equal(saved[group][key], want), name
+
+    resumed = Trainer(replace(cfg, seed=5), device="cpu")
+    resumed.restore_state(path)
+    resumed.dataset.rng = at_epoch_1["rng"]
+    resumed.dataset._norm_perm, resumed.dataset._abnorm_perm = \
+        at_epoch_1["perms"]
+    resumed.fit(1)
+    assert resumed.state.step == straight.state.step == 3
+    for name, p in named_params(resumed.state).items():
+        assert torch.equal(p, named_params(straight.state)[name]), name
 
 
 def test_trainer_needs_a_card_unless_told_cpu(sht, tmp_path):
@@ -176,7 +285,8 @@ def test_cli_train_rejects_unported_presets():
     from lstc_vad_tpu_torch import cli
 
     with pytest.raises(NotImplementedError, match="A14"):
-        cli.main(["train", "--preset", "ucf_ltn", "--device", "cpu"])
+        cli.main(["train", "--preset", "sht_ltn", "--device", "cpu",
+                  "--set", "data.ten_crop=true"])
     with pytest.raises(SystemExit, match="unknown config path"):
         cli.main(["train", "--preset", "sht_ltn", "--device", "cpu",
                   "--set", "optim.nope=1"])
