@@ -72,7 +72,37 @@
    taken as train records.  Each against an attn_impl="plain" copy: frame
    (or raw pseudo) scores within 5e-5, AUCs within 1e-4, launches n_layers
    x encoder calls.  Prints a ``ucf`` JSON line.
-8. Prints each phase's wall time, one JSON line of kernels (launches summed
+8. tenCrop phase, at full sht_ltn width from the seed-0 weights: a tenCrop
+   SHT-scale test split (107 videos, [n_clips, 10, 16, 2048] each, 3.4 GB
+   held in RAM, data/synthetic.py), evaluate_multicrop_mean (crop-major
+   passes) and a crop-0 eval, each against a plain copy (frame scores
+   within 5e-5, AUCs within 1e-4); then a Trainer over the same videos as
+   tenCrop train records: one PairedTrainDataset(ten_crop=True) pair, one
+   fit(1) step with evaluations at crop 0 (finite loss).  Launches equal
+   n_layers x encoder calls.  Prints a ``tencrop`` JSON line.
+9. Serve phase: the 107 test videos as 107 streams, pushed round-robin one
+   clip at a time as base64 f32 JSONL through serve_jsonl in this process
+   (flush every 64 pushes, 64 streams a call, then end_all): every stream's
+   scores against offline PartScorer(tail_rewindow=False) and a plain-path
+   StreamingScorer (5e-5).  Prints clips/s, flush latency p50/p99, device
+   calls and padded rows (``serve`` line).
+10. serve_mp phase: ``python -m lstc_vad_tpu_torch serve-backend
+   --max-batch 128`` as a subprocess on the card (the weights through a
+   checkpoint file), then 4 ``serve --backend`` worker subprocesses, each
+   reading a quarter of the streams as JSONL from a file: their scores
+   against the serve phase's (5e-5); while they run, ``nvidia-smi
+   --query-compute-apps=pid`` lists no worker and no worker maps libcuda;
+   SIGTERM shuts the backend down and it prints its calls, rows and
+   launches (``serve_mp`` line).
+11. Export phase: save_scorer_artifact with the tails (L=49/33/17 with
+   CLS) from the modules on the card and from a CPU copy; each artifact is
+   loaded on the card in a fresh interpreter (``export_child``), which
+   scores a saved token batch (against the live kernel path, 5e-5) and
+   serves the serve phase's requests through StreamingScorer.from_artifact
+   (against the serve phase, 5e-5); the kernel launched n_layers x program
+   calls there.  Prints sizes and export, save and load seconds
+   (``export`` line).
+12. Prints each phase's wall time, one JSON line of kernels (launches summed
    over every path above, and by path), then, as the last line,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -85,6 +115,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -711,6 +742,496 @@ def run_ucf(card: str) -> dict:
     return out
 
 
+def check_launches(launches: int, n_layers: int, calls: int, device: str,
+                   what: str):
+    """On the card every encoder call launches the kernel once a layer, and
+    a path launches it at least once; on the CPU nothing launches."""
+    want = n_layers * calls if device == "cuda" else 0
+    if launches != want or (device == "cuda" and launches == 0):
+        raise AssertionError(f"{what}: the kernel launched {launches} times "
+                             f"for {calls} encoder calls ({n_layers} "
+                             "layers)")
+
+
+def run_tencrop(cfg, encoder, head, root: str, card: str,
+                device="cuda") -> dict:
+    """tenCrop phase; raises on any failed check."""
+    import torch
+
+    from lstc_vad_tpu_torch.config import replace
+    from lstc_vad_tpu_torch.data.synthetic import (sht_tencrop_test_split,
+                                                   write_train_files)
+    from lstc_vad_tpu_torch.evaluation.drivers import (evaluate_ltn,
+                                                       evaluate_multicrop_mean)
+    from lstc_vad_tpu_torch.evaluation.scoring import PartScorer
+    from lstc_vad_tpu_torch.ops import cuda_attention
+    from lstc_vad_tpu_torch.train.driver import Trainer
+
+    t0 = time.perf_counter()
+    store, videos, records, masks = sht_tencrop_test_split(SEED)
+    out = {"videos": len(videos),
+           "clips": sum(v.n_clips for v in videos),
+           "gb": sum(f.nbytes for f in store.feats.values()) / 1e9,
+           "split_made_s": time.perf_counter() - t0}
+    d, n_layers = cfg.data, cfg.encoder.n_layers
+
+    def items_for_crop(c):
+        return [((lambda v=v, c=c: v.feat[:, c]), v.anno) for v in videos]
+
+    def evals(enc, hd):
+        scorer = PartScorer(enc, hd, d.part_len, d.n_patch,
+                            tail_rewindow=cfg.eval_tail_rewindow)
+        t0 = time.perf_counter()
+        mean = evaluate_multicrop_mean(evaluate_ltn, scorer, items_for_crop,
+                                       d.segment_len, return_scores=True)
+        t1 = time.perf_counter()
+        crop0 = evaluate_ltn(scorer, items_for_crop(0), d.segment_len,
+                             return_scores=True)
+        return mean, crop0, t1 - t0, scorer.scorer.n_calls
+
+    cuda_attention.reset_launches()
+    mean, crop0, mean_wall, calls = evals(encoder, head)
+    launches = cuda_attention.launches
+    check_launches(launches, n_layers, calls, device, "tencrop evals")
+    plain_mean, plain_crop0, plain_wall, _ = evals(
+        *plain_copy(cfg, encoder, head))
+    if cuda_attention.launches != launches:
+        raise AssertionError("tencrop: the plain path launched the kernel")
+    for name, (auc, scores), (p_auc, p_scores) in (
+            ("mean", mean, plain_mean), ("crop0", crop0, plain_crop0)):
+        err = max(float(np.abs(a - b).max())
+                  for a, b in zip(scores, p_scores))
+        if not np.isfinite(auc) or abs(auc - p_auc) > AUC_TOL \
+                or err > SCORE_ATOL:
+            raise AssertionError(f"tencrop {name}: AUC {auc} vs plain "
+                                 f"{p_auc}, frame scores off by {err}")
+        out[name] = {"auc": auc, "plain_auc": p_auc,
+                     "max_abs_score_err": err}
+    out.update(encoder_calls=calls, mean_wall_s=mean_wall,
+               plain_mean_wall_s=plain_wall)
+
+    # one full-width fit(1) step on tenCrop training data: the pair-shared
+    # crop draw, then evaluations of the test and train splits at crop 0
+    train_txt, mask_dir = write_train_files(os.path.join(root, "tencrop"),
+                                            records, masks)
+    cfg_t = replace(cfg, **{"data.ten_crop": True, "data.eval_crop": 0,
+                            "data.train_txt": train_txt,
+                            "data.test_mask_dir": mask_dir,
+                            "model_save_dir": os.path.join(root, "tc_ckpt")})
+    trainer = Trainer(cfg_t, store=store, test_videos=videos, device=device)
+    batch = trainer.dataset[0]
+    want = (d.part_num * d.part_len, d.n_patch, d.d_model)
+    if batch[0].shape != want or batch[2].shape != want:
+        raise AssertionError(f"tenCrop pair shapes {batch[0].shape}, "
+                             f"{batch[2].shape}; expected {want}")
+    cuda_attention.reset_launches()
+    t0 = time.perf_counter()
+    result = trainer.fit(1)
+    fit_wall = time.perf_counter() - t0
+    fit_launches = cuda_attention.launches
+    fit_calls = trainer.scorer.scorer.n_calls
+    entry = result.history[-1]
+    if result.steps != 1 or not np.isfinite(entry["loss"]):
+        raise AssertionError(f"tenCrop fit(1): {result.steps} steps, loss "
+                             f"{entry['loss']}")
+    check_launches(fit_launches, n_layers, fit_calls, device,
+                   "tenCrop fit(1) evals")
+    out["fit"] = {"steps": result.steps, "loss": entry["loss"],
+                  "auc_test": entry["auc_test"],
+                  "auc_train": entry["auc_train"], "wall_s": fit_wall,
+                  "eval_encoder_calls": fit_calls, "launches": fit_launches}
+    del trainer, store, videos
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out.update(launches=launches + fit_launches, card=card)
+    return out
+
+
+def stream_requests(items) -> list:
+    """The test split as JSONL push requests, one clip at a time round-robin
+    over the videos (stream ``v<index>``), base64 f32 payloads, then
+    end_all."""
+    import base64
+
+    lines = []
+    for t in range(max(len(f) for f, _ in items)):
+        for i, (feats, _) in enumerate(items):
+            if t < len(feats):
+                feat = base64.b64encode(np.ascontiguousarray(
+                    feats[t], dtype="<f4").tobytes()).decode()
+                lines.append(json.dumps({"op": "push", "stream": f"v{i}",
+                                         "feat": feat}))
+    lines.append(json.dumps({"op": "end_all"}))
+    return lines
+
+
+def stream_scores(replies) -> dict:
+    """{stream: [part scores in order]} from serve_jsonl's replies; raises
+    on an error reply."""
+    scores = {}
+    for r in replies:
+        if "error" in r:
+            raise AssertionError(f"serve replied {r}")
+        if "score" in r:
+            scores.setdefault(r["stream"], []).append(r["score"])
+        elif r.get("ended"):
+            scores.setdefault(r["stream"], []).extend(r["scores"])
+    return scores
+
+
+def serve_lines(scorer, lines, flush_every: int = 64):
+    """serve_jsonl over ``lines``; returns (replies, wall seconds, each
+    flush() call's seconds)."""
+    import io
+
+    from lstc_vad_tpu_torch.serving import serve_jsonl
+
+    inner, flush_s = scorer.flush, []
+
+    def timed_flush():
+        t0 = time.perf_counter()
+        result = inner()
+        flush_s.append(time.perf_counter() - t0)
+        return result
+
+    scorer.flush = timed_flush
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    serve_jsonl(scorer, lines, out, flush_every=flush_every)
+    wall = time.perf_counter() - t0
+    scorer.flush = inner
+    return [json.loads(x) for x in out.getvalue().splitlines()], wall, flush_s
+
+
+def max_stream_err(got: dict, want: dict) -> float:
+    if got.keys() != want.keys() or any(len(got[k]) != len(want[k])
+                                        for k in want):
+        raise AssertionError("streams or their part counts differ")
+    return max(float(np.abs(np.subtract(got[k], want[k])).max())
+               for k in want)
+
+
+def run_serve(cfg, encoder, head, items, card: str, device="cuda"):
+    """Serve phase; raises on any failed check.  Returns (line, the
+    kernel path's stream scores, the request lines)."""
+    from lstc_vad_tpu_torch.evaluation.scoring import PartScorer
+    from lstc_vad_tpu_torch.ops import cuda_attention
+    from lstc_vad_tpu_torch.serving import StreamingScorer
+
+    d, n_layers = cfg.data, cfg.encoder.n_layers
+    t0 = time.perf_counter()
+    lines = stream_requests(items)
+    made = time.perf_counter() - t0
+    n_clips = sum(len(f) for f, _ in items)
+
+    def serve(enc, hd):
+        scorer = StreamingScorer(enc, hd, d.part_len, d.n_patch, d.d_model,
+                                 max_streams=64)
+        replies, wall, flush_s = serve_lines(scorer, lines)
+        return scorer, stream_scores(replies), wall, flush_s
+
+    cuda_attention.reset_launches()
+    scorer, scores, wall, flush_s = serve(encoder, head)
+    launches = cuda_attention.launches
+    calls = scorer.scorer.n_calls
+    check_launches(launches, n_layers, calls, device, "serve")
+    if calls != scorer.n_calls:
+        raise AssertionError(f"serve: {scorer.n_calls} flush calls made "
+                             f"{calls} encoder calls")
+    offline = PartScorer(encoder, head, d.part_len, d.n_patch,
+                         tail_rewindow=False).score_videos(
+                             [f for f, _ in items])
+    want = {f"v{i}": s.tolist() for i, (s, _) in enumerate(offline)}
+    offline_err = max_stream_err(scores, want)
+    before = cuda_attention.launches
+    _, plain_scores, plain_wall, _ = serve(*plain_copy(cfg, encoder, head))
+    if cuda_attention.launches != before:
+        raise AssertionError("serve: the plain path launched the kernel")
+    plain_err = max_stream_err(scores, plain_scores)
+    if offline_err > SCORE_ATOL or plain_err > SCORE_ATOL:
+        raise AssertionError(f"serve: scores off the offline PartScorer by "
+                             f"{offline_err}, the plain path by {plain_err} "
+                             f"(limit {SCORE_ATOL})")
+    line = {"streams": len(items), "clips": n_clips,
+            "parts": sum(len(v) for v in scores.values()),
+            "requests_made_s": made, "request_mb": sum(map(len, lines)) / 1e6,
+            "wall_s": wall, "clips_per_s": n_clips / wall,
+            "flushes": len(flush_s),
+            "flush_ms_p50": float(np.percentile(flush_s, 50)) * 1e3,
+            "flush_ms_p99": float(np.percentile(flush_s, 99)) * 1e3,
+            "device_calls": calls, "padded_rows": scorer.n_padded,
+            "launches": launches, "max_abs_err_vs_offline": offline_err,
+            "max_abs_err_vs_plain": plain_err, "plain_wall_s": plain_wall,
+            "card": card}
+    return line, scores, lines
+
+
+def _read_line(proc, timeout: float) -> str:
+    """One line of ``proc``'s stdout within ``timeout`` seconds."""
+    import select
+
+    ready, _, _ = select.select([proc.stdout], [], [], timeout)
+    if not ready:
+        raise AssertionError(f"no line from pid {proc.pid} in {timeout} s")
+    return proc.stdout.readline()
+
+
+def _holds_cuda(pid: int) -> bool:
+    """Whether process ``pid`` has the CUDA driver library mapped."""
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            return "libcuda" in f.read()
+    except OSError:
+        return False
+
+
+def run_serve_mp(cfg, encoder, head, lines, want: dict, root: str,
+                 card: str, device="cuda") -> dict:
+    """serve_mp phase: a serve-backend subprocess and 4 serve --backend
+    workers; raises on any failed check."""
+    import signal
+    import threading
+
+    from lstc_vad_tpu_torch.ckpt import save_checkpoint
+
+    n_layers, n_workers = cfg.encoder.n_layers, 4
+    ckpt = os.path.join(root, "serve.pt")
+    save_checkpoint(ckpt, {"encoder": encoder.state_dict(),
+                           "head": head.state_dict()})
+    # a short path: unix socket paths are limited to 108 bytes
+    sock_dir = tempfile.mkdtemp(prefix="lv")
+    sock = os.path.join(sock_dir, "b.sock")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    cmd = [sys.executable, "-m", "lstc_vad_tpu_torch"]
+    t0 = time.perf_counter()
+    backend = subprocess.Popen(
+        [*cmd, "serve-backend", "--preset", cfg_name(cfg), *cfg_flags(cfg),
+         "--socket", sock, "--max-batch", "128", "--ckpt", ckpt,
+         "--device", device], cwd=here, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    workers, listed, cuda_workers = [], set(), set()
+    try:
+        ready = json.loads(_read_line(backend, 300))
+        if ready["listening"] != sock or ready["max_batch"] != 128:
+            raise AssertionError(f"backend ready line {ready}")
+        backend_up = time.perf_counter() - t0
+        # each worker takes a quarter of the streams, in the same order
+        shards = [[] for _ in range(n_workers)]
+        for ln in lines[:-1]:
+            sid = json.loads(ln)["stream"]
+            shards[int(sid[1:]) % n_workers].append(ln)
+        outs, inputs = [None] * n_workers, []
+        for i, shard in enumerate(shards):
+            inputs.append(os.path.join(root, f"worker{i}.jsonl"))
+            with open(inputs[-1], "w") as f:
+                f.write("\n".join(shard + [lines[-1]]) + "\n")
+        t0 = time.perf_counter()
+        for path in inputs:
+            with open(path) as stdin:
+                workers.append(subprocess.Popen(
+                    [*cmd, "serve", "--preset", cfg_name(cfg),
+                     *cfg_flags(cfg), "--backend", sock, "--max-streams",
+                     "64", "--flush-every", "64"], cwd=here, env=env,
+                    stdin=stdin, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True))
+
+        done = [0.0] * n_workers
+
+        def drain(i):
+            outs[i] = workers[i].communicate(timeout=600)
+            done[i] = time.perf_counter()
+
+        threads = [threading.Thread(target=drain, args=(i,))
+                   for i in range(n_workers)]
+        for t in threads:
+            t.start()
+        while any(t.is_alive() for t in threads):
+            smi = subprocess.run(
+                ["nvidia-smi", "--query-compute-apps=pid",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                timeout=60)
+            listed |= {int(x) for x in smi.stdout.split() if x.isdigit()}
+            cuda_workers |= {w.pid for w in workers if _holds_cuda(w.pid)}
+            time.sleep(0.5)
+        for t in threads:
+            t.join()
+        wall = max(done) - t0  # the last worker's exit, not the poll's
+        for w, (_, err) in zip(workers, outs):
+            if w.returncode != 0:
+                raise AssertionError(f"worker {w.pid} exited "
+                                     f"{w.returncode}: {err[-2000:]}")
+        scores = {}
+        for out, _ in outs:
+            scores.update(stream_scores(json.loads(x)
+                                        for x in out.splitlines()))
+        err = max_stream_err(scores, want)
+        worker_pids = {w.pid for w in workers}
+        if listed & worker_pids or cuda_workers:
+            raise AssertionError(f"a worker holds a CUDA context: nvidia-smi "
+                                 f"lists {sorted(listed)}, workers "
+                                 f"{sorted(worker_pids)}, libcuda mapped in "
+                                 f"{sorted(cuda_workers)}")
+        backend.send_signal(signal.SIGTERM)
+        out, berr = backend.communicate(timeout=120)
+        summary = json.loads(out.strip().splitlines()[-1])
+        if backend.returncode != 0:
+            raise AssertionError(f"backend exited {backend.returncode}: "
+                                 f"{berr[-2000:]}")
+    finally:
+        for proc in workers + [backend]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    calls, launches = summary["device_calls"], summary["kernel_launches"]
+    check_launches(launches, n_layers, calls, device, "serve-backend")
+    if err > SCORE_ATOL:
+        raise AssertionError(f"serve_mp: worker scores off the serve "
+                             f"phase's by {err} (limit {SCORE_ATOL})")
+    n_clips = len(lines) - 1
+    return {"workers": n_workers, "clips": n_clips, "backend_up_s": backend_up,
+            "wall_s": wall, "clips_per_s": n_clips / wall,
+            "worker_walls_s": [d - t0 for d in done],
+            "device_calls": calls, "rows": summary["rows"],
+            "rows_per_call": summary["rows"] / max(calls, 1),
+            "backend_apply_s": summary["apply_s"],
+            "launches": launches, "max_abs_err_vs_serve": err,
+            "smi_pids": sorted(listed), "script_pid": os.getpid(),
+            "backend_pid": backend.pid, "worker_pids": sorted(worker_pids),
+            "card": card}
+
+
+def cfg_name(cfg) -> str:
+    return "sht_ltn" if cfg.model == "ltn" else "sht_stn"
+
+
+def cfg_flags(cfg) -> list:
+    """--set flags giving ``cfg``'s model widths (none at the preset's)."""
+    from lstc_vad_tpu_torch.config import preset
+
+    base, flags = preset(cfg_name(cfg)), []
+    for group in ("encoder", "head", "data"):
+        for k, v in vars(getattr(cfg, group)).items():
+            if getattr(getattr(base, group), k) != v and not isinstance(
+                    v, (tuple, list)) and v is not None:
+                flags += ["--set", f"{group}.{k}={v}"]
+    return flags
+
+
+def export_child(art: str, tokens_npy: str, requests: str, out_json: str,
+                 device="cuda") -> int:
+    """Run in a fresh interpreter by the export phase: load the artifact on
+    ``device``, score the saved token batch, then serve the serve phase's
+    requests (one JSON line each in the file ``requests``) through
+    StreamingScorer.from_artifact."""
+    from lstc_vad_tpu_torch.export import load_scorer
+    from lstc_vad_tpu_torch.ops import cuda_attention
+    from lstc_vad_tpu_torch.serving import StreamingScorer
+
+    if device == "cuda":
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    loaded = load_scorer(art, device=device)
+    load_s = time.perf_counter() - t0
+    cuda_attention.reset_launches()
+    scores = loaded.score(np.load(tokens_npy))
+    calls = loaded.n_calls
+    scorer = StreamingScorer.from_artifact(art, max_streams=64,
+                                           device=device)
+    with open(requests) as f:
+        replies, wall, _ = serve_lines(scorer, f)
+    with open(out_json, "w") as f:
+        json.dump({"load_s": load_s, "scores": scores.tolist(),
+                   "streams": stream_scores(replies), "serve_wall_s": wall,
+                   "program_calls": calls + scorer.loaded.n_calls,
+                   "launches": cuda_attention.launches}, f)
+    return 0
+
+
+def run_export(cfg, encoder, head, lines, want: dict, root: str, card: str,
+               device="cuda") -> dict:
+    """Export phase: artifacts exported on the card and on the CPU, each
+    loaded on the card in a fresh interpreter; raises on any failed
+    check."""
+    import torch
+
+    from lstc_vad_tpu_torch.evaluation.scoring import _scorer_apply
+    from lstc_vad_tpu_torch.export import save_scorer_artifact
+    from lstc_vad_tpu_torch.models import build
+
+    d, n_layers = cfg.data, cfg.encoder.n_layers
+    token_len = d.part_len * d.n_patch
+    tails = tuple(range(d.n_patch, token_len, d.n_patch))
+    here = os.path.dirname(os.path.abspath(__file__))
+    rng = np.random.default_rng(SEED)
+    tokens = rng.standard_normal((64, token_len, d.d_model),
+                                 dtype=np.float32)
+    tokens_npy = os.path.join(root, "tokens.npy")
+    np.save(tokens_npy, tokens)
+    requests = os.path.join(root, "requests.jsonl")
+    with open(requests, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with torch.inference_mode():
+        live = _scorer_apply(encoder, head, "classifier", False,
+                             torch.from_numpy(tokens).to(device)
+                             ).cpu().numpy()
+    rows, total = {}, 0
+    for on in ("cuda", "cpu") if device == "cuda" else ("cpu",):
+        if on == "cpu":
+            enc, hd = build(cfg, device="cpu", seed=SEED)
+            enc.load_state_dict({k: v.cpu() for k, v in
+                                 encoder.state_dict().items()})
+            hd.load_state_dict({k: v.cpu() for k, v in
+                                head.state_dict().items()})
+        else:
+            enc, hd = encoder, head
+        art = os.path.join(root, f"artifact_{on}")
+        seconds = save_scorer_artifact(
+            art, enc, hd, "classifier", token_len, d.d_model,
+            extra_token_lens=tails,
+            extra_meta={"n_patch": d.n_patch, "part_len": d.part_len})
+        del enc, hd
+        size = sum(os.path.getsize(os.path.join(art, f))
+                   for f in os.listdir(art))
+        out_json = os.path.join(root, f"child_{on}.json")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-c",
+             "import sys, chip_smoke; sys.exit(chip_smoke.export_child("
+             f"{art!r}, {tokens_npy!r}, {requests!r}, {out_json!r}, "
+             f"{device!r}))"],
+            cwd=here, env=dict(os.environ, PYTHONPATH=here),
+            capture_output=True, text=True, timeout=600)
+        child_wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"export child ({on}) exited "
+                                 f"{res.returncode}: {res.stderr[-3000:]}")
+        with open(out_json) as f:
+            child = json.load(f)
+        score_err = float(np.abs(np.subtract(child["scores"], live)).max())
+        stream_err = max_stream_err(child["streams"], want)
+        launches = child["launches"]
+        check_launches(launches, n_layers, child["program_calls"], device,
+                       f"export ({on}), loaded programs")
+        if score_err > SCORE_ATOL or stream_err > SCORE_ATOL:
+            raise AssertionError(f"export ({on}): scores off the live "
+                                 f"scorer by {score_err}, streams by "
+                                 f"{stream_err} (limit {SCORE_ATOL})")
+        total += launches
+        rows[f"exported_on_{on}"] = {
+            "token_lens": sorted({token_len, *tails}),
+            "artifact_mb": size / 1e6, **seconds,
+            "load_s": child["load_s"], "child_wall_s": child_wall,
+            "serve_wall_s": child["serve_wall_s"],
+            "program_calls": child["program_calls"], "launches": launches,
+            "max_abs_err_vs_live": score_err,
+            "max_abs_err_vs_serve": stream_err}
+    return {**rows, "launches": total, "card": card}
+
+
 def run_eval(encoder, head, cfg, items):
     from lstc_vad_tpu_torch.evaluation.drivers import evaluate_ltn
     from lstc_vad_tpu_torch.evaluation.scoring import PartScorer
@@ -863,13 +1384,41 @@ def main() -> int:
     ucf = run_ucf(card)
     print("ucf " + json.dumps(ucf))
     walls["ucf"] = time.perf_counter() - t0
+
+    # -- tenCrop, serving and export phases -------------------------------
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        tencrop = run_tencrop(cfg, encoder, head, root, card)
+        print("tencrop " + json.dumps(tencrop))
+        walls["tencrop"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        serve, serve_scores, lines = run_serve(cfg, encoder, head, items,
+                                               card)
+        print("serve " + json.dumps(serve))
+        walls["serve"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        serve_mp = run_serve_mp(cfg, encoder, head, lines, serve_scores,
+                                root, card)
+        print("serve_mp " + json.dumps(serve_mp))
+        walls["serve_mp"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        export = run_export(cfg, encoder, head, lines, serve_scores, root,
+                            card)
+        print("export " + json.dumps(export))
+        walls["export"] = time.perf_counter() - t0
     print("walls " + json.dumps(walls))
 
     max_err = max(r["max_abs_err"] for r in rows)  # over every shape checked
     by_path = {"slice": launches, "fit_evals": train["fit_launches"],
                "fit_steps": 0,
                "dropout0_step": train["dropout0"]["launches"],
-               "coteach": coteach["launches"], "ucf": ucf["launches"]}
+               "coteach": coteach["launches"], "ucf": ucf["launches"],
+               "tencrop": tencrop["launches"], "serve": serve["launches"],
+               "serve_mp": serve_mp["launches"],
+               "export": export["launches"]}
     print(json.dumps({"kernels": [{
         "name": "attention", "route": "cuda",
         "source": "lstc_vad_tpu_torch/csrc/attention.cu",

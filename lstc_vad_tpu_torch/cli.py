@@ -1,6 +1,7 @@
-"""CLI of the PyTorch package — the ``train``, ``gen-pseudo``, ``evaluate``
-and ``coteach`` subcommands of lstc_vad_tpu/cli/main.py:359-675, 1109-1176,
-1308-1331 (SHT, UBnormal and UCF; STN and LTN):
+"""CLI of the PyTorch package — the ``train``, ``gen-pseudo``, ``evaluate``,
+``coteach``, ``export-aot``, ``serve`` and ``serve-backend`` subcommands of
+lstc_vad_tpu/cli/main.py:359-675, 895-1100, 1109-1292 (SHT, UBnormal and
+UCF; STN and LTN; tenCrop stores):
 
     python -m lstc_vad_tpu_torch train --preset sht_ltn --h5 feats.h5 \\
         --train-txt SH_Train_new.txt --test-txt SH_Test_NEW.txt \\
@@ -10,24 +11,38 @@ and ``coteach`` subcommands of lstc_vad_tpu/cli/main.py:359-675, 1109-1176,
 
     python -m lstc_vad_tpu_torch gen-pseudo --preset sht_stn --kind stn \\
         --h5 feats.h5 --train-txt SH_Train_new.txt --ckpt best.pt \\
-        --out stn_pseudo.npy [--threshold 0.9]
+        --out stn_pseudo.npy [--threshold 0.9] [--artifact DIR]
 
     python -m lstc_vad_tpu_torch evaluate --preset ucf_ltn \\
         --h5 ucf.h5 --test-txt Test_Annotation.txt --mask-h5 gt.h5 \\
-        [--ckpt best.pt | --torch-ckpt --encoder-ckpt e --head-ckpt h] \\
-        [--per-class] [--dump-scores s.npz] [--bootstrap N]
+        [--ckpt best.pt | --torch-ckpt --encoder-ckpt e --head-ckpt h \\
+         | --artifact DIR] [--per-class] [--dump-scores s.npz] \\
+        [--bootstrap N] [--eval-crop 0-9|mean]
 
     python -m lstc_vad_tpu_torch coteach --stn-preset sht_stn \\
         --ltn-preset sht_ltn --workdir work/ --h5 feats.h5 \\
         --train-txt ... --test-txt ... --mask-dir masks/ [--rounds 4]
 
-The flags are the JAX CLI's.  Refused with the roadmap item that ports
-them: ``--artifact`` (A17), ``--mesh`` / ``--multihost`` (A18) and
-``--eval-crop`` (tenCrop, A14).  Everything runs on the card unless
-``--device cpu`` is given.  ``--ckpt`` reads a ``ckpt/io.py`` file, the
-parameters alone (``train --save-best``) or a full state (``--save-state``);
-without a checkpoint, evaluate and gen-pseudo score random-init weights and
-say so.  Config fields are overridden with --set path=value, typed by the
+    python -m lstc_vad_tpu_torch export-aot --preset sht_ltn --ckpt best.pt \\
+        --out artifact/ [--tails] [--l2] [--train-shapes]
+
+    python -m lstc_vad_tpu_torch serve --preset sht_ltn \\
+        [--ckpt best.pt | --artifact DIR | --backend SOCKET] \\
+        [--max-streams 64] [--flush-every K] < requests.jsonl
+
+    python -m lstc_vad_tpu_torch serve-backend --preset sht_ltn \\
+        --socket /tmp/b.sock [--ckpt best.pt | --artifact DIR] \\
+        [--max-batch 128] [--window-ms 2]
+
+The flags are the JAX CLI's.  ``--mesh`` / ``--multihost`` are refused with
+the roadmap item that ports them (A18); ``export-aot --platforms`` is
+refused, since this package's artifact is device-portable.  Everything runs
+on the card unless ``--device cpu`` is given; a ``serve --backend`` worker
+takes no ``--device``: it never touches a device, nor imports torch.
+``--ckpt`` reads a ``ckpt/io.py`` file, the parameters alone
+(``train --save-best``) or a full state (``--save-state``); without a
+checkpoint, evaluate, gen-pseudo and serve score random-init weights and say
+so.  Config fields are overridden with --set path=value, typed by the
 dataclass field.
 """
 
@@ -120,12 +135,9 @@ def _apply_common(cfg: TrainConfig, args) -> TrainConfig:
     return cfg
 
 
-_UNPORTED = {"artifact": ("--artifact", "AOT artifacts are ROADMAP A17"),
-             "mesh": ("--mesh", "a device mesh is ROADMAP A18"),
+_UNPORTED = {"mesh": ("--mesh", "a device mesh is ROADMAP A18"),
              "multihost": ("--multihost", "multi-process runs are ROADMAP "
-                                          "A18"),
-             "eval_crop": ("--eval-crop", "tenCrop evaluation is ROADMAP "
-                                          "A14")}
+                                          "A18")}
 
 
 def _refuse_unported(args):
@@ -134,14 +146,14 @@ def _refuse_unported(args):
             raise SystemExit(f"{flag} is not ported yet: {why}")
 
 
-def _eval_trainer(cfg: TrainConfig, args, cmd: str):
-    """An eval-only Trainer holding the weights the checkpoint flags name:
-    --ckpt (a ckpt/io.py file, loaded strictly), or --torch-ckpt with the
-    reference's --encoder-ckpt/--head-ckpt state_dicts (keys that match
-    nothing and weights left fresh are reported, as the JAX CLI reports
-    them), or fresh random-init weights, said loudly."""
-    from .train.driver import Trainer
+def _eval_knobs(cfg: TrainConfig) -> TrainConfig:
+    """Evaluation is f32 whatever the training knobs say, as in the JAX
+    package's Trainer._make_eval_encoder: the reference eval is plain f32."""
+    return replace(cfg, **{"encoder.compute_dtype": "float32",
+                           "encoder.remat": False, "encoder.cast_sr": False})
 
+
+def _check_ckpt_flags(args):
     if args.torch_ckpt and not (args.encoder_ckpt and args.head_ckpt):
         raise SystemExit("--torch-ckpt needs both --encoder-ckpt and "
                          "--head-ckpt (the reference saves two files)")
@@ -151,12 +163,15 @@ def _eval_trainer(cfg: TrainConfig, args, cmd: str):
                          "modules")
     if args.torch_ckpt and args.ckpt:
         raise SystemExit("pass --ckpt or --torch-ckpt, not both")
-    # evaluation is f32 whatever the training knobs say, as in the JAX
-    # package's Trainer._make_eval_encoder: the reference eval is plain f32
-    cfg = replace(cfg, **{"encoder.compute_dtype": "float32",
-                          "encoder.remat": False, "encoder.cast_sr": False})
-    trainer = Trainer(cfg, eval_only=True, device=args.device)
-    state = trainer.state
+
+
+def _load_weights(state, args, cmd: str):
+    """Load the weights the checkpoint flags name into ``state``: --ckpt (a
+    ckpt/io.py file, loaded strictly), or --torch-ckpt with the reference's
+    --encoder-ckpt/--head-ckpt state_dicts (keys that match nothing and
+    weights left fresh are reported, as the JAX CLI reports them), or keep
+    the fresh random-init weights, said loudly."""
+    _check_ckpt_flags(args)
     if args.ckpt:
         from .ckpt import load_checkpoint
 
@@ -173,9 +188,102 @@ def _eval_trainer(cfg: TrainConfig, args, cmd: str):
                 print(f"[ckpt] {name}: kept fresh {res.missing_keys}, "
                       f"skipped {res.unexpected_keys}", file=sys.stderr)
     else:
-        print(f"[{cmd}] no --ckpt/--torch-ckpt: scoring with fresh "
-              "RANDOM-INIT weights (smoke-test mode)", file=sys.stderr)
+        print(f"[{cmd}] no --ckpt/--torch-ckpt/--artifact: scoring with "
+              "fresh RANDOM-INIT weights (smoke-test mode)", file=sys.stderr)
+
+
+def _reject_ckpt_flags_with_artifact(args):
+    if args.torch_ckpt or args.ckpt or args.encoder_ckpt or args.head_ckpt:
+        raise SystemExit("--artifact already contains the params — drop "
+                         "--ckpt/--torch-ckpt/--encoder-ckpt/--head-ckpt")
+
+
+def _eval_trainer(cfg: TrainConfig, args, cmd: str, weights: bool = True):
+    """An eval-only Trainer on ``--device`` holding the weights the
+    checkpoint flags name (``weights``; off when an artifact scores)."""
+    from .train.driver import Trainer
+
+    _check_ckpt_flags(args)
+    trainer = Trainer(_eval_knobs(cfg), eval_only=True, device=args.device)
+    if weights:
+        _load_weights(trainer.state, args, cmd)
     return trainer
+
+
+def _eval_token_len(cfg) -> int:
+    """Sequence length of one eval part: a single clip's patches for STN,
+    part_len clips for LTN."""
+    return (cfg.data.n_patch if cfg.model.startswith("stn")
+            else cfg.data.part_len * cfg.data.n_patch)
+
+
+def _load_eval_artifact(path: str, cfg, device):
+    """Load an AOT scorer artifact and fail fast on head-kind / d_model /
+    token-length mismatches, before any data is read."""
+    from .export import load_scorer
+
+    loaded = load_scorer(path, device=device)
+    need_len = _eval_token_len(cfg)
+    if loaded.meta["kind"] != cfg.head.kind:
+        raise SystemExit(f"artifact head kind {loaded.meta['kind']!r} does "
+                         f"not match the preset's {cfg.head.kind!r}")
+    if loaded.meta["d_model"] != cfg.encoder.d_model:
+        raise SystemExit(f"artifact d_model {loaded.meta['d_model']} != "
+                         f"preset encoder.d_model {cfg.encoder.d_model}")
+    if need_len not in loaded.token_lens:
+        raise SystemExit(
+            f"artifact has no program for {need_len}-token parts "
+            f"(token_lens={loaded.token_lens}); re-export with the matching "
+            "preset/--set shapes")
+    return loaded
+
+
+def _check_artifact_tails(loaded, cfg, cmd: str):
+    """No-rewindow LTN paths score tails at their TRUE length: the artifact
+    needs a program per possible tail length (export-aot --tails), checked
+    before any store walk."""
+    d = cfg.data
+    if d.dataset == "UCF":
+        # fixed max_clips bins: the one possible tail length is known
+        tails = {(cfg.max_clips % d.part_len) * d.n_patch} - {0}
+    else:
+        tails = set(range(d.n_patch, _eval_token_len(cfg), d.n_patch))
+    missing = sorted(tails - set(loaded.token_lens))
+    if missing:
+        msg = (f"artifact lacks programs for tail parts of {missing} tokens; "
+               "re-export with --tails")
+        if d.dataset == "UCF":
+            # max_clips % part_len != 0: a tail part ALWAYS occurs
+            raise SystemExit(msg)
+        print(f"[{cmd}] warning: {msg} — videos whose clip count is not a "
+              "part_len multiple will fail", file=sys.stderr)
+
+
+def _wrap_artifact(scorer, loaded, expect_l2: bool):
+    """Slot the artifact's programs into a scorer's inner VideoScorer
+    (evaluation/scoring.py::ArtifactVideoScorer)."""
+    if loaded.meta.get("l2_normalize", False) != expect_l2:
+        raise SystemExit(
+            f"this path needs l2_normalize={expect_l2} baked into the "
+            "artifact (export-aot --l2 for the UCF final eval, without it "
+            "otherwise)")
+    from .evaluation.scoring import ArtifactVideoScorer
+
+    scorer.scorer = ArtifactVideoScorer(loaded)
+    return scorer
+
+
+def _parse_eval_crop(cfg, raw):
+    if not raw or raw == "mean":
+        return cfg
+    try:
+        crop = int(raw)
+    except ValueError:
+        raise SystemExit(f"--eval-crop must be 0-9 or 'mean', got "
+                         f"{raw!r}") from None
+    if not 0 <= crop <= 9:
+        raise SystemExit(f"--eval-crop index out of range 0-9: {crop}")
+    return replace(cfg, **{"data.eval_crop": crop})
 
 
 def cmd_evaluate(args):
@@ -184,10 +292,11 @@ def cmd_evaluate(args):
 
     _refuse_unported(args)
     cfg = ucf_final_eval_shapes(_apply_common(preset(args.preset), args))
+    cfg = _parse_eval_crop(cfg, args.eval_crop)
     d = cfg.data
-    if d.ten_crop or d.pack_path:
-        raise SystemExit("tenCrop stores and .lstcpack stores are not ported "
-                         "yet (ROADMAP A14, A6)")
+    stn = cfg.model.startswith("stn")
+    if d.pack_path:
+        raise SystemExit(".lstcpack stores are not ported yet (ROADMAP A6)")
     if args.dump_scores and args.per_class:
         raise SystemExit("--dump-scores exports per-video eval scores; it "
                          "cannot be combined with --per-class")
@@ -197,27 +306,50 @@ def cmd_evaluate(args):
         if args.per_class:
             raise SystemExit("--bootstrap applies to the per-video eval; it "
                              "cannot be combined with --per-class")
-    ucf_ltn = d.dataset == "UCF" and not cfg.model.startswith("stn")
+    ucf_ltn = d.dataset == "UCF" and not stn
     if args.per_class and not ucf_ltn:
         raise SystemExit("--per-class is the UCF per-anomaly-class "
                          "breakdown (LTN presets)")
-    from .evaluation.drivers import (evaluate_ltn, evaluate_stn,
-                                     evaluate_ucf_ltn, evaluate_ucf_per_class,
+    if args.eval_crop == "mean":
+        if not d.ten_crop:
+            raise SystemExit("--eval-crop mean needs a tenCrop store "
+                             "(--set data.ten_crop=true)")
+        if d.dataset == "UCF":
+            raise SystemExit(
+                "tenCrop eval semantics exist for SHT/UBnormal only "
+                "(utils/load_dataset.py:338-362,731-755; the reference's "
+                "UCF_test_tenCrop at :494-509 is an identical copy of "
+                "UCF_test with no crop axis)")
+    loaded = None
+    if args.artifact:
+        _reject_ckpt_flags_with_artifact(args)
+        loaded = _load_eval_artifact(args.artifact, cfg, args.device)
+    from .evaluation.drivers import (evaluate_ltn, evaluate_multicrop_mean,
+                                     evaluate_stn, evaluate_ucf_ltn,
+                                     evaluate_ucf_per_class,
                                      evaluate_ucf_stn)
 
-    trainer = _eval_trainer(cfg, args, "evaluate")
+    trainer = _eval_trainer(cfg, args, "evaluate", weights=loaded is None)
     try:
+        if ucf_ltn:
+            # the UCF LTN final eval scores through its own scorer (L2 baked
+            # in); every other path through the Trainer's (no L2)
+            scorer = ucf_final_eval_scorer(cfg, trainer.state.encoder,
+                                           trainer.state.head)
+            if loaded is not None:
+                _wrap_artifact(scorer, loaded, expect_l2=True)
+        else:
+            scorer = trainer.scorer
+            if loaded is not None:
+                if not stn and not cfg.eval_tail_rewindow:
+                    _check_artifact_tails(loaded, cfg, "evaluate")
+                _wrap_artifact(scorer, loaded, expect_l2=False)
         if d.dataset == "UCF":
-            items = [((lambda v=v: v.feat), v.anno,
+            items = [(trainer._lazy_feat(v), v.anno,
                       v.n_frames // d.segment_len)
                      for v in trainer.test_videos]
         else:
             items = trainer._test_items()
-        if ucf_ltn:
-            scorer = ucf_final_eval_scorer(cfg, trainer.state.encoder,
-                                           trainer.state.head)
-        else:
-            scorer = trainer.scorer
         if args.per_class:
             from .data.annotations import parse_ucf_test
 
@@ -233,11 +365,25 @@ def cmd_evaluate(args):
             return 0
         want = dict(return_scores=bool(args.dump_scores),
                     return_labels=bool(args.bootstrap))
+        extra_record = {}
         if d.dataset == "UCF":
             fn = evaluate_ucf_ltn if ucf_ltn else evaluate_ucf_stn
         else:
-            fn = evaluate_stn if cfg.model.startswith("stn") else evaluate_ltn
-        result = fn(scorer, items, d.segment_len, **want)
+            fn = evaluate_stn if stn else evaluate_ltn
+        if args.eval_crop == "mean":
+            # crop-major passes with per-crop lazy reads: each pass reads one
+            # video at a time and keeps only its crop, so peak RSS stays near
+            # one video (x10 reads) instead of every video's 10-crop array
+
+            def items_for_crop(c):
+                return [((lambda v=v, c=c: v.feat[:, c]), v.anno)
+                        for v in trainer.test_videos]
+
+            result = evaluate_multicrop_mean(fn, scorer, items_for_crop,
+                                             d.segment_len, **want)
+            extra_record = {"eval_crop": "mean"}
+        else:
+            result = fn(scorer, items, d.segment_len, **want)
     finally:
         trainer.store.close()
     per_video = per_labels = None
@@ -255,7 +401,7 @@ def cmd_evaluate(args):
         print(f"frame scores -> {args.dump_scores}")
     print(f"auc = {auc}")
     record = {"kind": "final_eval", "auc": float(auc), "dataset": d.dataset,
-              "model": cfg.model}
+              "model": cfg.model, **extra_record}
     if args.bootstrap:
         from .evaluation.metrics import bootstrap_auc_ci
 
@@ -283,20 +429,35 @@ def cmd_gen_pseudo(args):
     if not d.train_txt:
         raise SystemExit("gen-pseudo scores the train split: pass "
                          "--train-txt")
+    if d.ten_crop and d.eval_crop is None:
+        raise SystemExit("tenCrop pseudo generation needs "
+                         "--set data.eval_crop=<0-9>")
+    loaded = None
+    if args.artifact:
+        _reject_ckpt_flags_with_artifact(args)
+        loaded = _load_eval_artifact(args.artifact, cfg, args.device)
+    from .data.feature_store import CropView
     from .pseudo import (generate_ltn_pseudo_labels,
                          generate_stn_pseudo_labels, pseudo_scorer,
                          save_pseudo_labels)
 
-    trainer = _eval_trainer(cfg, args, "gen-pseudo")
+    trainer = _eval_trainer(cfg, args, "gen-pseudo", weights=loaded is None)
     scorer = pseudo_scorer(cfg, trainer.state.encoder, trainer.state.head)
+    if loaded is not None:
+        if args.kind == "ltn":
+            _check_artifact_tails(loaded, cfg, "gen-pseudo")
+        _wrap_artifact(scorer, loaded, expect_l2=False)
+    store = trainer.store
+    if d.ten_crop:
+        store = CropView(store, d.eval_crop)
     try:
         if args.kind == "stn":
-            pseudo = generate_stn_pseudo_labels(scorer, trainer.store,
+            pseudo = generate_stn_pseudo_labels(scorer, store,
                                                 trainer.train_records,
                                                 args.threshold)
         else:
             pseudo = generate_ltn_pseudo_labels(
-                scorer, trainer.store, trainer.train_records, args.threshold,
+                scorer, store, trainer.train_records, args.threshold,
                 dataset=d.dataset, segment_len=d.segment_len)
     finally:
         trainer.store.close()
@@ -359,6 +520,200 @@ def cmd_coteach(args):
     return 0
 
 
+def cmd_export_aot(args):
+    """Export the eval scorer (torch.export programs + the weights once)
+    into a self-contained deployment artifact (export.py)."""
+    if args.platforms is not None:
+        raise SystemExit(
+            "--platforms lists the JAX artifact's lowering targets; this "
+            "package's artifact is device-portable: it runs on the CPU or "
+            "the card, whichever device exported it (load_scorer(device=))")
+    from .ckpt import load_checkpoint
+    from .evaluation.scoring import ucf_final_eval_shapes
+    from .export import save_scorer_artifact
+    from .train.state import create_train_state
+
+    _refuse_unported(args)
+    cfg = _apply_common(preset(args.preset), args)
+    if not args.train_shapes:
+        cfg = ucf_final_eval_shapes(cfg)
+    # exported artifacts are EVAL programs: f32 compute, remat off
+    cfg = _eval_knobs(cfg)
+    stn = cfg.model.startswith("stn")
+    token_len = _eval_token_len(cfg)
+    tails = ()
+    if args.tails:
+        if stn:
+            raise SystemExit("--tails is for LTN presets (STN scores single "
+                             "clips — there are no shorter tail parts)")
+        # the no-re-window eval paths score tail parts at their true length
+        # (distinct programs: the relative-PE slices by sequence length)
+        tails = tuple(range(cfg.data.n_patch, token_len, cfg.data.n_patch))
+    state = create_train_state(cfg, device=args.device)
+    load_checkpoint(args.ckpt, state)
+    save_scorer_artifact(args.out, state.encoder, state.head, cfg.head.kind,
+                         token_len, cfg.encoder.d_model, l2_normalize=args.l2,
+                         extra_token_lens=tails,
+                         extra_meta={"n_patch": cfg.data.n_patch,
+                                     "part_len": (1 if stn
+                                                  else cfg.data.part_len)})
+    print(f"wrote AOT scorer artifact to {args.out}")
+    return 0
+
+
+def _live_serving_modules(args, cfg, tag: str):
+    """(encoder, head) on ``--device`` in eval mode, holding the weights the
+    checkpoint flags name — the f32 eval twin of the preset, as every other
+    eval path builds it."""
+    from .train.state import create_train_state
+
+    state = create_train_state(_eval_knobs(cfg), device=args.device)
+    _load_weights(state, args, tag)
+    return state.encoder.eval(), state.head.eval()
+
+
+def _baked_part_len(path: str):
+    """The artifact's own part_len from meta.json (None when missing): the
+    baked windowing wins over the preset's, which would recompute n_patch
+    and truncate every pushed clip."""
+    import json
+    import os
+
+    try:
+        with open(os.path.join(path, "meta.json")) as f:
+            return json.load(f).get("part_len")
+    except (OSError, ValueError):
+        return None  # missing/corrupt meta: the loader raises the real error
+
+
+def cmd_serve(args):
+    """Online scoring server over stdin/stdout: JSONL requests in, JSONL
+    scores out (serving.serve_jsonl documents the protocol), backed by live
+    weights, an AOT artifact, or — as a torch-free worker — a serve-backend
+    process."""
+    from .serving import StreamingScorer, serve_jsonl
+
+    _refuse_unported(args)
+    cfg = _apply_common(preset(args.preset), args)
+    if args.max_streams < 1:
+        raise SystemExit(f"--max-streams must be >= 1, got {args.max_streams}")
+    # STN presets score single clips (part_len=1 + regressor); LTN scores
+    # part_len-clip parts with the classifier's abnormal-class probability
+    part_len = 1 if cfg.model.startswith("stn") else cfg.data.part_len
+    if args.backend:
+        # torch-FREE worker: protocol + stream buffers here, device calls
+        # proxied to the serve-backend process (serving_mp.py)
+        if args.artifact or args.torch_ckpt or args.ckpt \
+                or args.encoder_ckpt or args.head_ckpt:
+            raise SystemExit("--backend workers hold no params — they live "
+                             "in the serve-backend process; drop "
+                             "--ckpt/--torch-ckpt/--encoder-ckpt/"
+                             "--head-ckpt/--artifact")
+        if args.device is not None:
+            raise SystemExit("--backend workers hold no device — the "
+                             "serve-backend process owns it; drop --device")
+        from .serving_mp import make_worker_scorer
+
+        scorer = make_worker_scorer(args.backend, part_len, cfg.data.n_patch,
+                                    cfg.encoder.d_model,
+                                    max_streams=args.max_streams)
+        n_push, n_scores = serve_jsonl(scorer, sys.stdin, sys.stdout,
+                                       flush_every=args.flush_every)
+        print(f"[serve] {n_push} clips in, {n_scores} scores out "
+              f"(worker -> {args.backend})", file=sys.stderr)
+        return 0
+    args.device = args.device or "cuda"
+    if args.artifact:
+        _reject_ckpt_flags_with_artifact(args)
+        baked = _baked_part_len(args.artifact)
+        scorer = StreamingScorer.from_artifact(
+            args.artifact, max_streams=args.max_streams,
+            part_len=part_len if baked is None else None, device=args.device)
+    else:
+        encoder, head = _live_serving_modules(args, cfg, "serve")
+        scorer = StreamingScorer(
+            encoder, head, part_len, cfg.data.n_patch, cfg.encoder.d_model,
+            max_streams=args.max_streams, head_kind=cfg.head.kind,
+            transfer_dtype=cfg.data.eval_transfer_dtype)
+    n_push, n_scores = serve_jsonl(scorer, sys.stdin, sys.stdout,
+                                   flush_every=args.flush_every)
+    print(f"[serve] {n_push} clips in, {n_scores} scores out",
+          file=sys.stderr)
+    return 0
+
+
+def cmd_serve_backend(args):
+    """Device-owner half of multi-process serving (serving_mp.py): ONE
+    process on the card that coalesces token rows from N torch-free
+    ``serve --backend`` workers into device calls.  Params flags mirror
+    ``serve``.  Prints one JSON ready line to stdout once listening (a
+    supervisor can block on it), serves until SIGINT/SIGTERM, then prints
+    one JSON line with its device calls, rows, seconds inside the apply and
+    kernel launches."""
+    import json
+
+    import numpy as np
+
+    from .ops import cuda_attention
+    from .serving import _fetch
+    from .serving_mp import BatchingBackend
+
+    _refuse_unported(args)
+    cfg = _apply_common(preset(args.preset), args)
+    if args.max_batch < 1:
+        raise SystemExit(f"--max-batch must be >= 1, got {args.max_batch}")
+    part_len = 1 if cfg.model.startswith("stn") else cfg.data.part_len
+    if args.artifact:
+        _reject_ckpt_flags_with_artifact(args)
+        from .export import load_scorer
+
+        loaded = load_scorer(args.artifact, device=args.device)
+        if loaded.meta.get("l2_normalize", False):
+            raise SystemExit(
+                "artifact was exported with --l2 (UCF final-eval feature "
+                "normalize); serving uses the plain part semantics — "
+                "export without --l2")
+        baked = loaded.meta.get("part_len")
+        if baked is not None:
+            part_len = int(baked)
+        d_model = loaded.meta["d_model"]
+        token_len = loaded.meta["token_len"]
+        if token_len % part_len:
+            raise SystemExit(f"artifact token_len {token_len} is not "
+                             f"divisible by part_len {part_len}")
+        n_patch = token_len // part_len
+        apply_fn = loaded.score
+    else:
+        from .evaluation.scoring import VideoScorer
+
+        encoder, head = _live_serving_modules(args, cfg, "serve-backend")
+        apply_fn = VideoScorer(encoder, head,
+                               cfg.head.kind).score_tokens_async
+        d_model, n_patch = cfg.encoder.d_model, cfg.data.n_patch
+    backend = BatchingBackend(apply_fn, d_model, max_batch=args.max_batch,
+                              window_ms=args.window_ms)
+    # one full-size call before listening: the kernel's library loads and
+    # the first worker flush pays no set-up
+    _fetch(apply_fn(np.zeros((args.max_batch, part_len * n_patch, d_model),
+                             np.float32)))
+    cuda_attention.reset_launches()
+
+    def ready():
+        print(json.dumps({"listening": args.socket, "d_model": d_model,
+                          "max_batch": args.max_batch, "part_len": part_len,
+                          "n_patch": n_patch}), flush=True)
+
+    backend.serve_forever(args.socket, ready_fn=ready)
+    print(json.dumps({"device_calls": backend.n_calls,
+                      "rows": backend.n_rows,
+                      "apply_s": backend.apply_seconds,
+                      "kernel_launches": cuda_attention.launches}),
+          flush=True)
+    print(f"[serve-backend] {backend.n_calls} device calls, "
+          f"{backend.n_rows} rows", file=sys.stderr)
+    return 0
+
+
 def _add_data(p):
     p.add_argument("--h5")
     p.add_argument("--train-txt", dest="train_txt")
@@ -395,7 +750,10 @@ def _add_ckpt(p):
                         "state_dicts")
     p.add_argument("--encoder-ckpt", dest="encoder_ckpt")
     p.add_argument("--head-ckpt", dest="head_ckpt")
-    p.add_argument("--artifact", help="not ported yet (ROADMAP A17)")
+    p.add_argument("--artifact",
+                   help="AOT artifact directory (export-aot; --tails for "
+                        "LTN): score through its programs, params and model "
+                        "code not needed")
 
 
 def main(argv=None):
@@ -437,7 +795,8 @@ def main(argv=None):
                    help="report a 95%% CI from N video-level bootstrap "
                         "resamples alongside the point AUC")
     e.add_argument("--eval-crop", dest="eval_crop",
-                   help="not ported yet (tenCrop, ROADMAP A14)")
+                   help="tenCrop stores: crop index 0-9, or 'mean' for the "
+                        "10-crop averaged eval")
     e.set_defaults(fn=cmd_evaluate)
 
     c = sub.add_parser("coteach", help="alternating co-teaching rounds")
@@ -452,6 +811,64 @@ def main(argv=None):
     _add_data(c)
     c.add_argument("--multihost", help="not ported yet (ROADMAP A18)")
     c.set_defaults(fn=cmd_coteach)
+
+    x = sub.add_parser("export-aot",
+                       help="export the eval scorer (torch.export programs "
+                            "+ weights) into a self-contained deployment "
+                            "artifact")
+    _add_common(x)
+    x.add_argument("--ckpt", required=True,
+                   help="a checkpoint file of this package (params or a "
+                        "full train state)")
+    x.add_argument("--out", required=True, help="artifact directory")
+    x.add_argument("--l2", action="store_true",
+                   help="bake in the UCF eval-only L2 feature normalize "
+                        "(Test/evaluation_UCF.py:77)")
+    x.add_argument("--tails", action="store_true",
+                   help="LTN: also bake programs for tail parts of 1.."
+                        "part_len-1 clips (the no-re-window eval semantics)")
+    x.add_argument("--train-shapes", dest="train_shapes",
+                   action="store_true",
+                   help="UCF LTN: export at the TRAINING part shapes "
+                        "instead of the final-eval override (part_len=2) — "
+                        "required for gen-pseudo --artifact on UCF")
+    x.add_argument("--platforms",
+                   help="refused: the artifact is device-portable")
+    x.set_defaults(fn=cmd_export_aot)
+
+    v = sub.add_parser("serve",
+                       help="online scoring server: JSONL requests on stdin "
+                            "(push/flush/end), JSONL scores on stdout")
+    _add_common(v)
+    _add_ckpt(v)
+    v.set_defaults(device=None)  # a --backend worker takes none
+    v.add_argument("--max-streams", dest="max_streams", type=int, default=64,
+                   help="streams scored per device call")
+    v.add_argument("--flush-every", dest="flush_every", type=int, default=0,
+                   metavar="K",
+                   help="also flush after every K pushes (default: only on "
+                        "explicit {\"op\": \"flush\"} requests)")
+    v.add_argument("--backend", metavar="SOCKET",
+                   help="run as a torch-free protocol worker: buffer "
+                        "streams here, proxy device calls to a "
+                        "serve-backend unix socket")
+    v.set_defaults(fn=cmd_serve)
+
+    b = sub.add_parser("serve-backend",
+                       help="multi-process serving device owner: batch "
+                            "token rows from N 'serve --backend' workers "
+                            "into device calls over a unix socket")
+    _add_common(b)
+    _add_ckpt(b)
+    b.add_argument("--socket", required=True,
+                   help="unix socket path to listen on")
+    b.add_argument("--max-batch", dest="max_batch", type=int, default=128,
+                   help="most rows of one coalesced device call (every "
+                        "worker's --max-streams must be <= it)")
+    b.add_argument("--window-ms", dest="window_ms", type=float, default=2.0,
+                   help="coalescing window: how long to wait for more "
+                        "workers' rows before dispatching a partial batch")
+    b.set_defaults(fn=cmd_serve_backend)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -8,8 +8,10 @@ permutation; length = min(#normal, #abnormal); each video contributes
 ``part_num`` windows of ``part_len`` consecutive clips (data/sampler.py), the
 first ``n_patch`` patches kept; labels come from the pseudo-label dict when
 given (entries of shape [L] or [L,2] — last column used), else constant 0/1.
-The tenCrop layout is not ported yet (ROADMAP A14), nor are the
-``PackedStore`` gather fast paths (A6).
+With a tenCrop store a crop is drawn per pair (SHT/UBnormal) or per video
+(UCF) from the dataset's own generator, in the JAX package's order, so the
+batches stay bit-equal.  The ``PackedStore`` gather fast paths are not
+ported yet (ROADMAP A6).
 
 Test videos carry per-frame annotations: zeros(n_frames) for normal, the GT
 mask .npy (SHT/UBnormal, utils/load_dataset.py:119-126) or GT h5 row (UCF,
@@ -52,16 +54,17 @@ def _labels_for(pseudo: Optional[np.ndarray], feat_len: int,
 class PairedTrainDataset:
     """Normal/abnormal balanced pairs with per-epoch reshuffling.
     ``double_short``: the UCF rule, videos of at most ``part_len`` clips are
-    doubled clip-wise (data/sampler.py::maybe_double_short)."""
+    doubled clip-wise (data/sampler.py::maybe_double_short).
+    ``ten_crop``: the store holds tenCrop features; each draw takes one crop
+    by ``rng.integers(0, 10)``, shared by the normal/abnormal pair
+    (SHT/UBnormal, utils/load_dataset.py:223-225,720-722) or, with
+    ``crop_per_video``, drawn per video (UCF, :413-415)."""
 
     def __init__(self, records: Sequence[TrainRecord], store,
                  part_num: int, part_len: int, n_patch: int, sample: str,
                  pseudo_labels: Optional[Dict[str, np.ndarray]] = None,
                  ten_crop: bool = False, double_short: bool = False,
-                 seed: int = 0):
-        if ten_crop:
-            raise NotImplementedError("tenCrop training data is not ported "
-                                      "yet (ROADMAP A14)")
+                 crop_per_video: bool = False, seed: int = 0):
         self.normal = [r for r in records if not r.is_abnormal]
         self.abnormal = [r for r in records if r.is_abnormal]
         self.store = store
@@ -70,7 +73,9 @@ class PairedTrainDataset:
         self.n_patch = n_patch
         self.sample = sample
         self.pseudo_labels = pseudo_labels
+        self.ten_crop = ten_crop
         self.double_short = double_short
+        self.crop_per_video = crop_per_video
         self.rng = np.random.default_rng(seed)
         self.shuffle_keys()
 
@@ -90,8 +95,9 @@ class PairedTrainDataset:
             return self.pseudo_labels[key + ".npy"]
         return self.pseudo_labels[key]
 
-    def _sample_video(self, rec: TrainRecord):
-        feat = self.store.get(rec.key)
+    def _sample_video(self, rec: TrainRecord, crop: Optional[int]):
+        feat = (self.store.get(rec.key) if crop is None
+                else self.store.get(rec.key, crop=crop))
         labs = _labels_for(self._pseudo_for(rec.key), feat.shape[0],
                            rec.is_abnormal)
         if self.double_short:
@@ -108,9 +114,16 @@ class PairedTrainDataset:
             feat = feat[:, :self.n_patch, :]
         return np.ascontiguousarray(feat, dtype=np.float32), labs[idx]
 
+    def _draw_crop(self) -> Optional[int]:
+        return int(self.rng.integers(0, 10)) if self.ten_crop else None
+
     def __getitem__(self, item: int):
-        nf, nl = self._sample_video(self.normal[self._norm_perm[item]])
-        af, al = self._sample_video(self.abnormal[self._abnorm_perm[item]])
+        crop = self._draw_crop()
+        nf, nl = self._sample_video(self.normal[self._norm_perm[item]], crop)
+        if self.crop_per_video:
+            crop = self._draw_crop()
+        af, al = self._sample_video(self.abnormal[self._abnorm_perm[item]],
+                                    crop)
         return nf, nl, af, al
 
 
@@ -136,8 +149,8 @@ class TestVideo:
 
     @property
     def feat(self) -> np.ndarray:
-        """[n_clips, n_patch, d], read from the store (memoized when
-        ``cache``)."""
+        """[n_clips, n_patch, d] (or tenCrop [n_clips, 10, n_patch, d]),
+        read from the store (memoized when ``cache``)."""
         if self._feat is not None:
             return self._feat
         f = self.loader()

@@ -27,12 +27,18 @@ random too, so an AUC measures nothing but agreement between two runs.
   ``n_frames = 16 * clips + (0..15)`` and, if abnormal, a per-frame mask
   with one anomalous interval.  The same videos serve as train records
   (``TrainRecord`` with ``n_frames``) for UCF pseudo-label generation.
+- tenCrop test split (``sht_tencrop_test_split``): the test split's 107
+  videos and clip counts with ten crops per clip, [n_clips, 10, 16, 2048]
+  each: ~2,550 clips, 3.4 GB of f32 features held at once (a crop-major
+  evaluation reads every video once per crop, so making them on each read
+  would cost ten times the generation).  The same videos serve as tenCrop
+  train records, with their masks.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -49,13 +55,15 @@ UCF_TEST_CLIPS = (16, 465)  # [low, high) clips per UCF test video: a stand-in
 
 class SyntheticStore:
     """Features held in memory, with ``FeatureStore``'s ``get`` / ``n_clips``
-    interface."""
+    interface; tenCrop features are [n_clips, 10, n_patch, d] and ``get``
+    takes a ``crop``."""
 
     def __init__(self, feats: Dict[str, np.ndarray]):
         self.feats = feats
 
-    def get(self, key: str) -> np.ndarray:
-        return self.feats[key]
+    def get(self, key: str, crop: Optional[int] = None) -> np.ndarray:
+        feat = self.feats[key]
+        return feat if crop is None else feat[:, crop]
 
     def n_clips(self, key: str) -> int:
         return self.feats[key].shape[0]
@@ -84,9 +92,10 @@ class LazyStore:
         return self.clips[key]
 
 
-def _video(rng: np.random.Generator, n_clips: int, abnormal: bool
-           ) -> Tuple[np.ndarray, np.ndarray]:
-    feats = rng.standard_normal((n_clips, N_PATCH, D_FEAT), dtype=np.float32)
+def _video(rng: np.random.Generator, n_clips: int, abnormal: bool,
+           crops: Tuple[int, ...] = ()) -> Tuple[np.ndarray, np.ndarray]:
+    feats = rng.standard_normal((n_clips, *crops, N_PATCH, D_FEAT),
+                                dtype=np.float32)
     labels = np.zeros(n_clips * SEGMENT_LEN)
     if abnormal:
         n_frames = n_clips * SEGMENT_LEN
@@ -102,6 +111,22 @@ def sht_test_split(seed: int = 0) -> List[Tuple[np.ndarray, np.ndarray]]:
     rng = np.random.default_rng(seed)
     return [_video(rng, int(rng.integers(10, 38)), i >= N_NORMAL)
             for i in range(N_VIDEOS)]
+
+
+def sht_tencrop_test_split(seed: int = 0) -> Tuple[
+        SyntheticStore, List[TestVideo], List[TrainRecord],
+        Dict[str, np.ndarray]]:
+    """(tenCrop store, test videos whose ``feat`` is [n_clips, 10, 16,
+    2048], the same videos as train records, the abnormal ones' per-frame
+    masks)."""
+    rng = np.random.default_rng(seed)
+    items = [_video(rng, int(rng.integers(10, 38)), i >= N_NORMAL, (10,))
+             for i in range(N_VIDEOS)]
+    videos = as_test_videos(items)
+    store = SyntheticStore({v.key: f for v, (f, _) in zip(videos, items)})
+    records = [TrainRecord(v.key, v.is_abnormal) for v in videos]
+    masks = {v.key: v.anno for v in videos if v.is_abnormal}
+    return store, videos, records, masks
 
 
 def as_test_videos(items: List[Tuple[np.ndarray, np.ndarray]]

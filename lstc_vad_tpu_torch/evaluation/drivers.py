@@ -1,5 +1,5 @@
 """Dataset-level evaluation drivers -> frame-level AUC
-(lstc_vad_tpu/evaluation/drivers.py:24-85, 122-188).
+(lstc_vad_tpu/evaluation/drivers.py:24-188).
 
 Each function reproduces one reference eval loop's score/label assembly, with
 the per-part device calls replaced by the batched scorers in
@@ -76,6 +76,40 @@ def evaluate_ltn(scorer: PartScorer, items: Iterable[Item],
         all_labels.append(lab)
     return _result(all_scores, all_labels, return_scores, return_labels,
                    compute_auc)
+
+
+def evaluate_multicrop_mean(eval_fn, scorer, items_for_crop,
+                            segment_len: int = 16, n_crops: int = 10,
+                            return_scores: bool = False,
+                            return_labels: bool = False):
+    """10-crop averaged evaluation: per-video frame scores averaged over the
+    crops (summed in float64, divided by ``n_crops``), then one frame AUC.
+    The reference ships tenCrop TEST loaders (utils/load_dataset.py:338-362,
+    731-755) but no eval script; this is the JAX package's averaged-crop
+    semantics (lstc_vad_tpu/evaluation/drivers.py:88-119), the CLI's
+    ``--eval-crop mean``.
+
+    ``eval_fn``: evaluate_stn or evaluate_ltn.  ``items_for_crop(c)`` yields
+    that crop's (feats, anno) items (feats may be lazy loaders); the crops
+    are scored one pass after another."""
+    score_sum, annos = None, None
+    for crop in range(n_crops):
+        items = list(items_for_crop(crop))
+        _, scores = eval_fn(scorer, items, segment_len, return_scores=True,
+                            compute_auc=False)
+        if score_sum is None:
+            score_sum = [np.asarray(s, np.float64) for s in scores]
+            annos = [anno for _, anno in items]
+        else:
+            score_sum = [a + np.asarray(s, np.float64)
+                         for a, s in zip(score_sum, scores)]
+    all_scores, all_labels = [], []
+    for s, anno in zip(score_sum, annos):
+        s = s / n_crops
+        lab = _frame_labels(anno, len(s))
+        all_scores.append(s[:len(lab)])
+        all_labels.append(lab)
+    return _result(all_scores, all_labels, return_scores, return_labels)
 
 
 UCFItem = Tuple[np.ndarray, np.ndarray, int]  # (feats, anno, n_clips)

@@ -140,6 +140,10 @@ class VideoScorer:
                                pin_memory=True).numpy()
         return np.empty(shape, np.float32)
 
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _scorer_apply(self.encoder, self.head, self.kind,
+                             self.l2_normalize, x)
+
     def _dispatch(self, tokens: np.ndarray):
         """ONE device call; returns a zero-arg resolve() -> scores [n].  On
         the card nothing here waits for the device: the copies and compute
@@ -149,15 +153,13 @@ class VideoScorer:
                                                      dtype=np.float32))
         if self.device.type == "cpu":
             with torch.inference_mode():
-                scores = _scorer_apply(self.encoder, self.head, self.kind,
-                                       self.l2_normalize, host).numpy()
+                scores = self._forward(host).numpy()
             return lambda: scores
         if not host.is_pinned():
             host = host.pin_memory()
         with torch.cuda.device(self.device), torch.inference_mode():
             x = host.to(self.device, non_blocking=True)
-            scores = _scorer_apply(self.encoder, self.head, self.kind,
-                                   self.l2_normalize, x)
+            scores = self._forward(x)
             out = torch.empty(scores.shape, dtype=torch.float32,
                               pin_memory=True)
             out.copy_(scores, non_blocking=True)
@@ -184,6 +186,23 @@ class VideoScorer:
     def score_tokens(self, tokens: np.ndarray) -> np.ndarray:
         """tokens: [B, T, d] float32 -> scores [B] (host numpy)."""
         return self.score_tokens_async(tokens)()
+
+
+class ArtifactVideoScorer(VideoScorer):
+    """A ``VideoScorer`` drop-in backed by an AOT artifact
+    (export.py::LoadedScorer): the same pinned-buffer dispatch, with the
+    loaded program in place of the modules (lstc_vad_tpu/evaluation/
+    scoring.py:291).  Any scorer above takes it as its ``scorer``."""
+
+    def __init__(self, loaded):
+        self.loaded = loaded
+        self.kind = loaded.meta["kind"]
+        self.l2_normalize = loaded.meta.get("l2_normalize", False)
+        self.device = loaded.device
+        self.n_calls = 0
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.loaded.forward(x)
 
 
 class _Pipeline:

@@ -10,17 +10,22 @@ lstc_vad_tpu/ops/pallas_attention.py::_kernel.
   that are multiples of 4 elements.  The output is a [B, H, L, D] view of a
   [B, L, H, D] buffer, the layout the encoder's output projection reads.
 - On CPU tensors it runs the plain version (ops/attention.py::plain_sdpa),
-  because there is no kernel there.
+  because there is no kernel there, and returns it in the same layout.
 - On CUDA tensors it launches the kernel or raises.  It never falls back to
   the plain version: a shape, dtype or layout the kernel does not take is an
   error, and so is a launch the runtime refuses.
 
-``attention`` is differentiable: a ``torch.autograd.Function`` whose forward
-is the kernel (the plain version on CPU tensors) and whose backward reruns
-``plain_sdpa`` under autograd on the saved q, k, v and bias — the one source
-of the attention math, as lstc_vad_tpu/ops/pallas_attention.py:98-169 wraps
-its kernel in a ``jax.custom_vjp`` that recomputes through ``_xla_reference``.
-Under ``torch.inference_mode`` (the scorers) nothing is saved.
+The one route to the kernel is the registered operator
+``lstc_vad::attention(q, k, v, bias?, temperature) -> out``
+(``torch.library.custom_op``): its implementation is ``_launch``, its fake
+implementation states the output's shape and strides, so ``torch.export``
+keeps the kernel as one opaque node of a graph, and its registered autograd
+reruns ``plain_sdpa`` under autograd on the saved q, k, v and bias — the one
+source of the attention math, as lstc_vad_tpu/ops/pallas_attention.py:98-169
+wraps its kernel in a ``jax.custom_vjp`` that recomputes through
+``_xla_reference``.  Under ``torch.inference_mode`` (the scorers) nothing is
+saved.  Importing this module registers the operator; an exported program
+that holds it needs the import before ``torch.export.load``.
 
 ``launches`` counts the kernel launches of this process (forward launches;
 the backward launches none); a run resets it to 0 and reads it afterwards to
@@ -38,6 +43,7 @@ import torch
 from . import _build
 from .attention import plain_sdpa
 
+OP_NAME = "lstc_vad::attention"
 MAX_L = 128       # 16 key tiles of 8
 MAX_D = 256
 CHUNK = 32        # D-columns per pipeline stage
@@ -139,16 +145,19 @@ def _check(q, k, v, bias, temperature):
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             bias: Optional[torch.Tensor], temperature: float) -> torch.Tensor:
-    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+    """The kernel on CUDA tensors, the plain version on CPU tensors; either
+    way the result is a [B, H, L, D] view of a fresh [B, L, H, D] buffer, the
+    strides the op's fake implementation states."""
     global launches
     tensors = [q, k, v] + ([bias] if bias is not None else [])
+    b, h, length, d = q.shape
     if all(t.device.type == "cpu" for t in tensors):
-        return plain_sdpa(q, k, v, temperature, bias=bias)
+        out = q.new_empty(b, length, h, d).transpose(1, 2)
+        return out.copy_(plain_sdpa(q, k, v, temperature, bias=bias))
     if q.device.type != "cuda":
         raise ValueError(f"attention: tensors on {q.device}; the kernel "
                          "runs on CUDA tensors")
     _check(q, k, v, bias, temperature)
-    b, h, length, d = q.shape
     out = torch.empty(b, length, h, d, device=q.device,
                       dtype=q.dtype).transpose(1, 2)
     if out.numel() == 0:
@@ -170,33 +179,53 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-class _Attention(torch.autograd.Function):
-    """Forward: the kernel.  Backward: autograd through ``plain_sdpa`` on
-    detached copies of the saved inputs (q, k, v are the encoder's strided
-    views of its projections; saving them copies nothing)."""
+@torch.library.custom_op(OP_NAME, mutates_args=())
+def _attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: Optional[torch.Tensor], temperature: float
+                  ) -> torch.Tensor:
+    return _launch(q, k, v, bias, temperature)
 
-    @staticmethod
-    def forward(ctx, q, k, v, bias, temperature):
-        ctx.temperature = temperature
-        ctx.save_for_backward(q, k, v, bias)
-        return _launch(q, k, v, bias, temperature)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        q, k, v, bias = ctx.saved_tensors
-        wanted = ctx.needs_input_grad[:4]
-        inputs = [t.detach().requires_grad_(need) if t is not None else None
-                  for t, need in zip((q, k, v, bias), wanted)]
-        with torch.enable_grad():
-            out = plain_sdpa(*inputs[:3], ctx.temperature, bias=inputs[3])
-        # autograd calls backward only when some input needs a gradient
-        wrt = [t for t, need in zip(inputs, wanted) if need]
-        grads = iter(torch.autograd.grad(out, wrt, grad_out))
-        return tuple(next(grads) if need else None for need in wanted) + (
-            None,)
+@_attention_op.register_fake
+def _attention_fake(q, k, v, bias, temperature):
+    """Shape, type and strides only: [B, H, L, D] over a [B, L, H, D]
+    buffer.  q, k and v may be strided views; nothing here assumes they are
+    contiguous."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("attention: q, k, v must share one [B, H, L, D] "
+                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, h, length, d = q.shape
+    return q.new_empty(b, length, h, d).transpose(1, 2)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, bias, temperature = inputs
+    ctx.temperature = temperature
+    ctx.save_for_backward(q, k, v, bias)
+
+
+def _backward(ctx, grad_out):
+    """Autograd through ``plain_sdpa`` on detached copies of the saved
+    inputs (q, k, v are the encoder's strided views of its projections;
+    saving them copies nothing)."""
+    q, k, v, bias = ctx.saved_tensors
+    wanted = ctx.needs_input_grad[:4]
+    inputs = [t.detach().requires_grad_(need) if t is not None else None
+              for t, need in zip((q, k, v, bias), wanted)]
+    with torch.enable_grad():
+        out = plain_sdpa(*inputs[:3], ctx.temperature, bias=inputs[3])
+    # autograd calls backward only when some input needs a gradient
+    wrt = [t for t, need in zip(inputs, wanted) if need]
+    grads = iter(torch.autograd.grad(out, wrt, grad_out))
+    return tuple(next(grads) if need else None for need in wanted) + (None,)
+
+
+_attention_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               bias: Optional[torch.Tensor], temperature: float
               ) -> torch.Tensor:
-    return _Attention.apply(q, k, v, bias, temperature)
+    """softmax(q·kᵀ/temperature + bias[h])·v through ``lstc_vad::attention``."""
+    return _attention_op(q, k, v, bias, float(temperature))

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..config import TrainConfig, replace
+from ..data.feature_store import CropView
 from ..device import resolve_device
 from ..train.driver import Trainer
 from .generator import (generate_ltn_pseudo_labels, generate_stn_pseudo_labels,
@@ -121,9 +122,13 @@ class CoTeachingDriver:
         return trainer
 
     def _pseudo_store(self, trainer: Trainer):
-        if trainer.cfg.data.ten_crop:
-            raise NotImplementedError("tenCrop pseudo labels need CropView, "
-                                      "which is not ported yet (ROADMAP A14)")
+        """tenCrop stores need a fixed crop for deterministic pseudo labels
+        (no committed reference tenCrop generator semantics)."""
+        d = trainer.cfg.data
+        if d.ten_crop:
+            if d.eval_crop is None:
+                raise ValueError("tenCrop co-teaching needs data.eval_crop")
+            return CropView(trainer.store, d.eval_crop)
         return trainer.store
 
     def generate_stn_pseudo(self, trainer: Trainer

@@ -8,9 +8,10 @@ the train step of ``cfg.model``, evaluation every ``inter_epoch`` epochs over
 the test (and optionally train) split, AUC-gated checkpoints, and an
 asynchronous autosave of the full state every N epochs.
 
-SHT, UBnormal and UCF are ported.  Not yet: tenCrop stores (ROADMAP A14),
-``.lstcpack`` stores (A6), a narrower wire type for batches (A19) and a
-device mesh (A18); each raises ``NotImplementedError``.
+SHT, UBnormal and UCF are ported, tenCrop stores included (a crop drawn per
+training pair or video; evaluation at the fixed ``data.eval_crop``).  Not
+yet: ``.lstcpack`` stores (ROADMAP A6), a narrower wire type for batches
+(A19) and a device mesh (A18); each raises ``NotImplementedError``.
 
 Modes: a step puts the modules in train mode (train/steps.py) and
 ``evaluate`` puts them in eval mode, so in-training evaluation runs without
@@ -55,9 +56,6 @@ class TrainResult:
 
 def _check_supported(cfg: TrainConfig):
     d = cfg.data
-    if d.ten_crop:
-        raise NotImplementedError("tenCrop stores are not ported yet "
-                                  "(ROADMAP A14)")
     if d.pack_path:
         raise NotImplementedError(".lstcpack stores are not ported yet "
                                   "(ROADMAP A6)")
@@ -112,7 +110,8 @@ class Trainer:
             eager = d.eager and records and not eval_only
             self.store = FeatureStore(
                 d.h5_path, eager_keys=[r.key for r in records] if eager
-                else None)
+                else None, ten_crop=d.ten_crop, n_patch=d.n_patch,
+                d_model=d.d_model)
         self.dataset = None
         if not eval_only:
             pseudo = (load_pseudo_labels(d.pseudo_labels_path)
@@ -120,7 +119,8 @@ class Trainer:
             self.dataset = PairedTrainDataset(
                 records, self.store, part_num=d.part_num, part_len=d.part_len,
                 n_patch=d.n_patch, sample=d.sample, pseudo_labels=pseudo,
-                double_short=(d.dataset == "UCF"), seed=d.seed)
+                ten_crop=d.ten_crop, double_short=(d.dataset == "UCF"),
+                crop_per_video=(d.dataset == "UCF"), seed=d.seed)
         self.train_records = records
         self._train_masks: Dict[str, np.ndarray] = {}
 
@@ -170,6 +170,24 @@ class Trainer:
 
     # ---------------------------------------------------------------- eval
 
+    def _eval_feat(self, feat):
+        """tenCrop stores yield 4-D [n_clips, 10, n_patch, d] features; the
+        reference ships no tenCrop eval script, so evaluation needs an
+        explicit crop (data.eval_crop)."""
+        d = self.cfg.data
+        if not d.ten_crop:
+            return feat
+        if d.eval_crop is None:
+            raise ValueError("tenCrop evaluation needs data.eval_crop (0-9): "
+                             "the reference has no committed tenCrop eval "
+                             "semantics")
+        return feat[:, d.eval_crop]
+
+    def _lazy_feat(self, v):
+        """Zero-arg loader of a test video's features at the eval crop:
+        the scorers stream one video at a time."""
+        return lambda: self._eval_feat(v.feat)
+
     def _test_items(self):
         d = self.cfg.data
         if d.dataset == "UCF":
@@ -178,10 +196,10 @@ class Trainer:
             # feature-array clip count (Train/temporal_transformer_UCF.py:
             # 143-145)
             stn = self.cfg.model.startswith("stn")
-            return [((lambda v=v: v.feat), v.anno,
+            return [(self._lazy_feat(v), v.anno,
                      v.n_frames // d.segment_len if stn else v.n_clips)
                     for v in self.test_videos]
-        return [((lambda v=v: v.feat), v.anno) for v in self.test_videos]
+        return [(self._lazy_feat(v), v.anno) for v in self.test_videos]
 
     def _train_items(self):
         """Train-split eval: abnormal videos use the frame mask GT
@@ -201,7 +219,8 @@ class Trainer:
                 if anno is None:
                     anno = self._train_masks[r.key] = np.load(
                         os.path.join(d.test_mask_dir, r.key + ".npy"))
-            items.append(((lambda key=r.key: self.store.get(key)), anno))
+            items.append(((lambda key=r.key: self._eval_feat(
+                self.store.get(key))), anno))
         return items
 
     def evaluate(self, split: str = "test") -> float:

@@ -204,13 +204,21 @@ def test_ucf_evaluate_per_class_matches_jax(ucf_ckpt):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["evaluate", "--preset", "sht_ltn", "--artifact", "a"], "A17"),
-    (["gen-pseudo", "--preset", "sht_ltn", "--kind", "ltn", "--out", "o",
-      "--artifact", "a"], "A17"),
+    (["export-aot", "--preset", "sht_ltn", "--ckpt", "c", "--out", "a",
+      "--platforms", "tpu,cpu"], "device-portable"),
+    (["serve", "--preset", "sht_ltn", "--backend", "s"], "hold no device"),
     (["train", "--preset", "sht_ltn", "--mesh", "2x1"], "A18"),
+    (["serve-backend", "--preset", "sht_ltn", "--socket", "s", "--mesh",
+      "2x1"], "A18"),
     (["coteach", "--stn-preset", "sht_stn", "--ltn-preset", "sht_ltn",
       "--workdir", "w", "--multihost", "auto"], "A18"),
-    (["evaluate", "--preset", "sht_ltn", "--eval-crop", "mean"], "A14"),
+    (["evaluate", "--preset", "sht_ltn", "--eval-crop", "mean"],
+     "needs a tenCrop store"),
+    (["evaluate", "--preset", "sht_ltn", "--eval-crop", "10"], "0-9"),
+    (["gen-pseudo", "--preset", "sht_ltn", "--kind", "ltn", "--out", "o",
+      "--train-txt", "t", "--set", "data.ten_crop=true"], "eval_crop"),
+    (["evaluate", "--preset", "sht_ltn", "--artifact", "a", "--ckpt", "c"],
+     "already contains the params"),
     (["gen-pseudo", "--preset", "sht_stn", "--kind", "ltn", "--out", "o"],
      "does not match"),
     (["evaluate", "--preset", "sht_ltn", "--per-class"], "UCF"),

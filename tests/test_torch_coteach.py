@@ -204,15 +204,6 @@ def test_callers_store_and_split_serve_every_round(tmp_path):
     store.close()
 
 
-def test_tencrop_coteaching_is_not_ported(tmp_path):
-    jstn, jltn = sht_configs(str(tmp_path / "data"))
-    stn, ltn = (port_config(jax_replace(c, **{"data.ten_crop": True}))
-                for c in (jstn, jltn))
-    driver = CoTeachingDriver(stn, ltn, str(tmp_path / "w"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        driver.run(rounds=1, stn_epochs=1, ltn_epochs=1)
-
-
 def test_driver_needs_a_card_unless_told_cpu(tmp_path):
     import torch
 

@@ -252,3 +252,69 @@ def test_pseudo_label_pass_takes_the_kernel(card):
     for key, labels in want.items():
         assert got[key].shape == (store.n_clips(key[:-4]),)
         np.testing.assert_allclose(got[key], labels, rtol=0, atol=5e-5)
+
+
+@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_op_passes_opcheck_on_the_card(card, with_bias, grad):
+    """The registered lstc_vad::attention on CUDA tensors: schema, fake
+    implementation (shapes and strides of the kernel's output), autograd
+    registration, and tracing with dynamic shapes."""
+    q, k, v, bias = _inputs(card, 400 + 2 * with_bias + grad, 3, 8, 49, 256,
+                            with_bias, strided=True)
+    for t in (q, k, v) + ((bias,) if with_bias else ()):
+        t.requires_grad_(grad)
+    result = torch.library.opcheck(torch.ops.lstc_vad.attention.default,
+                                   (q, k, v, bias, 16.0))
+    assert set(result.values()) == {"SUCCESS"}, result
+
+
+def _small_ltn(card, **overrides):
+    """A small sht_ltn (d_k 32, the kernel's narrowest head) on ``card``."""
+    from lstc_vad_tpu_torch.config import preset
+    from lstc_vad_tpu_torch.models import build
+
+    cfg = preset("sht_ltn", **{
+        "encoder.d_model": 64, "encoder.d_inner": 96, "encoder.n_head": 2,
+        "encoder.d_k": 32, "encoder.d_v": 32, "encoder.n_layers": 2,
+        "head.d_model": 64, "head.hidden_dim": 16, "data.n_patch": 16,
+        "data.d_model": 64, **overrides})
+    return cfg, build(cfg, device=card, seed=0)
+
+
+@pytest.mark.parametrize("export_on", ["cuda", "cpu"])
+def test_exported_program_launches_the_kernel_on_the_card(card, tmp_path,
+                                                          export_on):
+    """An artifact exported on the card, or on the CPU, loads on the card
+    and its programs launch the kernel once a layer per call, with the live
+    kernel path's scores."""
+    from lstc_vad_tpu_torch.evaluation.scoring import _scorer_apply
+    from lstc_vad_tpu_torch.export import load_scorer, save_scorer_artifact
+
+    cfg, (enc, head) = _small_ltn(card)
+    if export_on == "cpu":
+        from lstc_vad_tpu_torch.models import build
+
+        cpu_enc, cpu_head = build(cfg, device="cpu", seed=0)
+        cpu_enc.load_state_dict({k: t.cpu() for k, t in
+                                 enc.state_dict().items()})
+        cpu_head.load_state_dict({k: t.cpu() for k, t in
+                                  head.state_dict().items()})
+        exporter = (cpu_enc, cpu_head)
+    else:
+        exporter = (enc, head)
+    path = str(tmp_path / "artifact")
+    save_scorer_artifact(path, *exporter, "classifier", 48, 64,
+                         extra_token_lens=(16, 32))
+    loaded = load_scorer(path, device=card)
+    rng = np.random.default_rng(0)
+    for length in (16, 32, 48):
+        x = rng.standard_normal((5, length, 64)).astype(np.float32)
+        before = cuda_attention.launches
+        got = loaded.score(x)
+        assert cuda_attention.launches - before == cfg.encoder.n_layers
+        with torch.inference_mode():
+            want = _scorer_apply(enc, head, "classifier", False,
+                                 torch.from_numpy(x).to(card)).cpu().numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=5e-5)
+    assert loaded.score(x[:1]).shape == (1,)

@@ -178,9 +178,9 @@ def test_entry_points_need_a_card_unless_told_cpu(sht):
 
 
 def test_cli_rejects_unported_paths(sht):
-    with pytest.raises(SystemExit, match="A14"):
+    with pytest.raises(SystemExit, match="A6"):
         cli.main(["evaluate", "--preset", "sht_ltn", "--device", "cpu",
-                  "--set", "data.ten_crop=true"])
+                  "--set", "data.pack_path=x.lstcpack"])
     with pytest.raises(SystemExit, match="unknown config path"):
         cli.main(["evaluate", "--preset", "sht_ltn", "--device", "cpu",
                   "--set", "encoder.nope=1"])

@@ -45,7 +45,10 @@ def test_package_imports_no_jax_and_no_jax_package():
                 "lstc_vad_tpu_torch.ckpt.io",
                 "lstc_vad_tpu_torch.pseudo.generator",
                 "lstc_vad_tpu_torch.pseudo.coteach",
-                "lstc_vad_tpu_torch.evaluation.drivers"):
+                "lstc_vad_tpu_torch.evaluation.drivers",
+                "lstc_vad_tpu_torch.serving",
+                "lstc_vad_tpu_torch.serving_mp",
+                "lstc_vad_tpu_torch.export"):
         assert mod in report["imported"]
     bad = [m for m in report["loaded"]
            if m.split(".")[0] in FORBIDDEN_ROOTS

@@ -114,14 +114,6 @@ def test_paired_dataset_pseudo_labels_equal_jax(tmp_path):
         pd.load_pseudo_labels(str(tmp_path / "missing.npy"))
 
 
-def test_ten_crop_is_not_ported(tmp_path):
-    h5, train_txt, _, _ = make_sht_like(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A14"):
-        pd.PairedTrainDataset(pd.load_train_records("SHT", train_txt),
-                              FeatureStore(h5), 3, 2, 2, "uniform",
-                              ten_crop=True)
-
-
 def test_feature_store_eager_keys_read_once(tmp_path):
     h5, train_txt, _, _ = make_sht_like(str(tmp_path))
     keys = [r.key for r in pd.load_train_records("SHT", train_txt)]

@@ -120,7 +120,6 @@ def test_metrics_jsonl_best_params_and_iteration_log(sht, tmp_path, caplog):
 @pytest.mark.parametrize("change,error,match", [
     ({"data.dataset": "UCF", "eval_train_split": True}, ValueError,
      "UCF has no train-split"),
-    ({"data.ten_crop": True}, NotImplementedError, "A14"),
     ({"data.pack_path": "x.lstcpack"}, NotImplementedError, "A6"),
     ({"data.transfer_dtype": "bfloat16"}, NotImplementedError, "A19"),
     ({"data.test_mask_dir": ""}, ValueError, "test_mask_dir"),
@@ -284,9 +283,9 @@ def test_cli_train_on_the_cpu(sht, tmp_path):
 def test_cli_train_rejects_unported_presets():
     from lstc_vad_tpu_torch import cli
 
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(NotImplementedError, match="A6"):
         cli.main(["train", "--preset", "sht_ltn", "--device", "cpu",
-                  "--set", "data.ten_crop=true"])
+                  "--set", "data.pack_path=x.lstcpack"])
     with pytest.raises(SystemExit, match="unknown config path"):
         cli.main(["train", "--preset", "sht_ltn", "--device", "cpu",
                   "--set", "optim.nope=1"])
