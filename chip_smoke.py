@@ -102,7 +102,28 @@
    (against the serve phase, 5e-5); the kernel launched n_layers x program
    calls there.  Prints sizes and export, save and load seconds
    (``export`` line).
-12. Prints each phase's wall time, one JSON line of kernels (launches summed
+12. Pack phase, run right after the train phase, in its directory and
+   over the same train split: ``write_pack`` writes it as a .lstcpack
+   (2.34 GB; timed), a PackedStore opens it in the native reader
+   (libpackstore's g++ build is timed again), and for 3 epochs' batches
+   (batch 40, 48 clips x 16 x 2048) ``get_batch`` through the native gather and through the numpy reader is
+   held bit-equal to the per-item batches from memory, each build timed,
+   with the copy of a gathered batch into pinned memory.  Then fit(2) at
+   the preset's dropouts from the pack (``data.pack_path``) and from memory,
+   same seed: losses within rel 1e-6 (PACK_LOSS_RTOL; the same batches and
+   masks), test AUCs within 1e-4, launches n_layers x the evaluations'
+   encoder calls; one more epoch of each under torch.profiler gives the
+   device's idle share.  Prints a ``pack`` line.
+13. cli phase: ``python -m lstc_vad_tpu_torch`` subprocesses on the card
+   over the pack: validate-data (exit 0; exit 1 naming the unknown key of a
+   broken train list), info (the card's name, both libraries built),
+   profile --mode eval --steps 3 (the attention kernel in the trace,
+   n_layers x 3 launches), sweep over optim.lr_encoder (the preset's value
+   and half of it, 1 epoch each, full width: two ranked runs),
+   export-torch on the pack fit's best weights (the two files load
+   strict=True into fresh modules) and evaluate with --ckpt and with
+   --torch-ckpt on its files (the same AUC).  Prints a ``cli`` line.
+14. Prints each phase's wall time, one JSON line of kernels (launches summed
    over every path above, and by path), then, as the last line,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -137,6 +158,9 @@ LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-3
 # 1), so its scores alone would compare equal whatever the attention did.
 # Two accurate f32 forwards differ by ~1e-6 here; a wrong kernel by O(1).
 CLS_RTOL = 1e-4
+# fit(2) from a pack against fit(2) from memory: the same batches and the
+# same dropout masks, so the same losses up to the order of float sums
+PACK_LOSS_RTOL = 1e-6
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 # the kernel's f32-accurate rate: 3xTF32 is three TF32 tensor-core products
 # (495 TFLOP/s dense) for each f32 one
@@ -847,6 +871,288 @@ def run_tencrop(cfg, encoder, head, root: str, card: str,
     return out
 
 
+def _trainer_run(trainer, jsonl: str, device: str, trace_dir: str):
+    """fit(2) with the kernel's launches counted, then one more epoch under
+    the profiler for the device's idle share of an epoch (batch building
+    included: one step an epoch leaves the prefetcher nothing to overlap)."""
+    from lstc_vad_tpu_torch.ops import cuda_attention
+    from lstc_vad_tpu_torch.utils.profiling import (TRACE_FILE,
+                                                    device_busy_ms, trace)
+
+    cuda_attention.reset_launches()
+    result = trainer.fit(2)
+    launches = cuda_attention.launches
+    if result.steps < 1:
+        raise AssertionError("fit(2) took no step")
+    with open(jsonl) as f:
+        epochs = [r for r in map(json.loads, f) if r["kind"] == "train"]
+    with trace(trace_dir):
+        t0 = time.perf_counter()
+        trainer.train_epoch()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = (device_busy_ms(os.path.join(trace_dir, TRACE_FILE))
+            if device == "cuda" else None)
+    return {"losses": [r["loss"] for r in epochs],
+            "aucs_test": [h["auc_test"] for h in result.history],
+            "aucs_train": [h["auc_train"] for h in result.history],
+            "s_per_step": sum(r["seconds"] for r in epochs) / result.steps,
+            "traced_epoch_ms": wall_ms, "traced_epoch_busy_ms": busy,
+            "idle_share": None if busy is None else 1.0 - busy / wall_ms,
+            "launches": launches,
+            "eval_encoder_calls": trainer.scorer.scorer.n_calls}
+
+
+def run_pack(cfg, store, test_videos, root: str, card: str,
+             device="cuda") -> dict:
+    """Pack phase: the train split written as a .lstcpack, its batches held
+    bit-equal to the in-memory per-item batches, the batch build timed per
+    reader, and fit(2) from the pack against fit(2) from memory; raises on
+    any failed check.  Returns (row, path of the pack, params file of the
+    pack fit's best weights)."""
+    import torch
+
+    from lstc_vad_tpu_torch.ckpt import save_checkpoint
+    from lstc_vad_tpu_torch.config import replace
+    from lstc_vad_tpu_torch.data import (BatchIterator, PackedStore,
+                                         PairedTrainDataset,
+                                         load_train_records)
+    from lstc_vad_tpu_torch.data.packed import write_pack
+    from lstc_vad_tpu_torch.ops import _build
+    from lstc_vad_tpu_torch.train.driver import Trainer
+
+    d, n_layers = cfg.data, cfg.encoder.n_layers
+    pack = os.path.join(root, "train.lstcpack")
+    t0 = time.perf_counter()
+    write_pack(pack, store.feats.items())
+    out = {"videos": len(store.feats), "pack_gb": os.path.getsize(pack) / 1e9,
+           "write_s": time.perf_counter() - t0}
+    # the reader's build, timed again apart from main()'s parallel build
+    lib = os.path.join(root, "libpackstore.so")
+    t0 = time.perf_counter()
+    subprocess.run(_build._command("packstore", lib), check=True,
+                   capture_output=True, timeout=300)
+    out["libpackstore_build_s"] = time.perf_counter() - t0
+
+    records = load_train_records(d.dataset, d.train_txt)
+    kw = dict(part_num=d.part_num, part_len=d.part_len, n_patch=d.n_patch,
+              sample=d.sample, seed=d.seed)
+    native = PackedStore(pack)
+    if not native.native:
+        raise AssertionError("the pack did not open in the native reader")
+    readers = {"native": PairedTrainDataset(records, native, **kw),
+               "numpy": PairedTrainDataset(
+                   records, PackedStore(pack, use_native=False), **kw),
+               "memory": PairedTrainDataset(records, store, **kw)}
+    build_ms = {name: [] for name in readers}
+    pin_ms = []
+    n_batches = 0
+    for _ in range(3):  # epochs
+        batches = {}
+        for name, ds in readers.items():
+            t0 = time.perf_counter()
+            batches[name] = list(BatchIterator(ds, d.batch_size))
+            build_ms[name].append((time.perf_counter() - t0) * 1e3
+                                  / max(len(batches[name]), 1))
+            ds.shuffle_keys()
+        want = batches["memory"]
+        for name in ("native", "numpy"):
+            if len(batches[name]) != len(want) or not all(
+                    np.array_equal(a, b) and a.dtype == b.dtype
+                    for got, ref in zip(batches[name], want)
+                    for a, b in zip(got, ref)):
+                raise AssertionError(f"pack batches ({name} reader) differ "
+                                     "from the in-memory per-item batches")
+        n_batches += len(want)
+        if device == "cuda":
+            # the Prefetcher's copy of a gathered batch into pinned memory
+            for batch in batches["native"]:
+                t0 = time.perf_counter()
+                for a in batch:
+                    torch.empty(a.shape, dtype=torch.float32,
+                                pin_memory=True).copy_(torch.from_numpy(a))
+                pin_ms.append((time.perf_counter() - t0) * 1e3)
+        del batches, want
+    native.close()
+    out.update(batches_checked=n_batches, batch_mb=float(
+        2 * d.batch_size * d.part_num * d.part_len * d.n_patch * d.d_model
+        * 4 / 1e6), batch_build_ms={k: float(np.median(v))
+                                    for k, v in build_ms.items()},
+        batch_build_ms_all=build_ms,
+        pin_copy_ms=float(np.median(pin_ms)) if pin_ms else None)
+
+    runs = {}
+    for name in ("pack", "memory"):
+        jsonl = os.path.join(root, f"pack_{name}.jsonl")
+        over = {"metrics_jsonl": jsonl,
+                "model_save_dir": os.path.join(root, f"pack_{name}_ckpt")}
+        if name == "pack":
+            over["data.pack_path"] = pack
+        trainer = Trainer(replace(cfg, **over), device=device,
+                          store=None if name == "pack" else store,
+                          test_videos=test_videos)
+        runs[name] = _trainer_run(trainer, jsonl, device,
+                                  os.path.join(root, f"trace_{name}"))
+        check_launches(runs[name]["launches"], n_layers,
+                       runs[name]["eval_encoder_calls"], device,
+                       f"fit(2) from {name}")
+        if name == "pack":
+            if not trainer.store.native:
+                raise AssertionError("the pack Trainer's store is not native")
+            best = os.path.join(root, "pack_best.pt")
+            save_checkpoint(best, trainer.best_params or trainer.params())
+        del trainer
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    got, want = runs["pack"], runs["memory"]
+    for a, b in zip(got["losses"], want["losses"]):
+        if not np.isfinite(a) or not abs(a - b) <= PACK_LOSS_RTOL * abs(b):
+            raise AssertionError(f"fit(2) losses from the pack {got['losses']}"
+                                 f" vs from memory {want['losses']} (limit "
+                                 f"rel {PACK_LOSS_RTOL})")
+    if len(got["losses"]) != 2 or not np.allclose(
+            got["aucs_test"], want["aucs_test"], rtol=0, atol=AUC_TOL):
+        raise AssertionError(f"fit(2) test AUCs {got['aucs_test']} (pack) vs "
+                             f"{want['aucs_test']} (memory)")
+    out.update(fit_pack=got, fit_memory=want, loss_rtol=PACK_LOSS_RTOL,
+               launches=got["launches"] + want["launches"], card=card)
+    return out, pack, best
+
+
+def _run_all(cmds: dict, cwd: str, timeout: float) -> dict:
+    """Run {name: argv} as ``python -m lstc_vad_tpu_torch`` subprocesses,
+    all started together; {name: (returncode, stdout, stderr, wall s)}."""
+    env = dict(os.environ, PYTHONPATH=cwd)
+    procs = {name: (subprocess.Popen(
+        [sys.executable, "-m", "lstc_vad_tpu_torch", *argv], cwd=cwd,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+        time.perf_counter()) for name, argv in cmds.items()}
+    results = {}
+    try:
+        for name, (proc, t0) in procs.items():
+            so, se = proc.communicate(timeout=timeout)
+            results[name] = (proc.returncode, so, se, time.perf_counter() - t0)
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return results
+
+
+def run_cli(cfg, pack: str, best: str, store, root: str, card: str,
+            device="cuda") -> dict:
+    """cli phase: validate-data, info, profile, sweep, export-torch and
+    evaluate as subprocesses over the pack and the train phase's text
+    files; raises on any failed check."""
+    from lstc_vad_tpu_torch.ckpt.interop import load_reference_checkpoint
+    from lstc_vad_tpu_torch.config import replace
+    from lstc_vad_tpu_torch.models import build
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    d = cfg.data
+    # the train videos again as an SHT test list (key,label,n_frames; the
+    # abnormal ones' masks are in the train phase's mask dir)
+    test_txt = os.path.join(root, "cli_test.txt")
+    bad_txt = os.path.join(root, "cli_train_bad.txt")
+    with open(test_txt, "w") as f:
+        for key, feat in store.feats.items():
+            abnormal = os.path.exists(os.path.join(d.test_mask_dir,
+                                                   key + ".npy"))
+            f.write(f"{key},{int(abnormal)},"
+                    f"{-1 if abnormal else 16 * len(feat)}\n")
+    with open(d.train_txt) as f, open(bad_txt, "w") as g:
+        g.write(f.read() + "ghost_video_000,0\n")
+    dev = ["--device", device]
+    # the model's widths only: the lists go in as flags of their own
+    widths = cfg_flags(replace(cfg, **{"data.train_txt": "",
+                                       "data.test_mask_dir": ""}))
+    data = ["--preset", cfg_name(cfg), *widths, "--set",
+            f"data.pack_path={pack}", "--test-txt", test_txt, "--mask-dir",
+            d.test_mask_dir]
+    lr = cfg.optim.lr_encoder
+    prof, enc, head = (os.path.join(root, n) for n in
+                       ("cli_prof", "cli_enc.ckpt", "cli_head.ckpt"))
+    sweep_out = os.path.join(root, "cli_sweep.jsonl")
+    waves = [
+        {"validate_ok": ["validate-data", *data, "--train-txt", d.train_txt],
+         "validate_bad": ["validate-data", *data, "--train-txt", bad_txt],
+         "info": ["info", *dev],
+         "export_torch": ["export-torch", *data, "--ckpt", best,
+                          "--encoder-out", enc, "--head-out", head, *dev]},
+        {"profile": ["profile", "--preset", cfg_name(cfg), *widths,
+                     "--mode", "eval", "--steps", "3", "--out", prof, *dev],
+         "sweep": ["sweep", *data, "--train-txt", d.train_txt, "--grid",
+                   f"optim.lr_encoder={lr},{lr / 2}", "--epochs", "1",
+                   "--out", sweep_out, "--save-dir",
+                   os.path.join(root, "cli_sweep_ckpt"), *dev],
+         "evaluate_ckpt": ["evaluate", *data, "--ckpt", best, *dev],
+         "evaluate_torch_ckpt": ["evaluate", *data, "--torch-ckpt",
+                                 "--encoder-ckpt", enc, "--head-ckpt", head,
+                                 *dev]}]
+    results = {}
+    for wave in waves:
+        results.update(_run_all(wave, here, timeout=600))
+    walls = {name: r[3] for name, r in results.items()}
+    want_rc = {name: 1 if name == "validate_bad" else 0 for name in results}
+    for name, (rc, so, se, _) in results.items():
+        if rc != want_rc[name]:
+            raise AssertionError(f"cli {name}: exit {rc} (expected "
+                                 f"{want_rc[name]}): {se[-3000:]}")
+    out = {"walls_s": walls}
+    so = results["validate_ok"][1]
+    if "ok: all referenced" not in so:
+        raise AssertionError(f"cli validate-data: {so[-2000:]}")
+    so = results["validate_bad"][1]
+    if "'ghost_video_000' not in the feature store" not in so \
+            or "1 problem(s) found" not in so:
+        raise AssertionError(f"cli validate-data (bad list): {so[-2000:]}")
+    out["validate_stats"] = so.splitlines()[0]
+    so = results["info"][1]
+    lines = ["packstore (packstore.cpp): built"]
+    if device == "cuda":  # on the CPU nothing builds the kernel
+        import torch
+
+        lines += ["attention (attention.cu): built",
+                  torch.cuda.get_device_name(0)]
+    if not all(ln in so for ln in lines):
+        raise AssertionError(f"cli info: {so}")
+    prof_row = json.loads(results["profile"][1].splitlines()[-1])
+    with open(os.path.join(prof, "trace.json")) as f:
+        kernel_in_trace = "attention_fwd_kernel" in f.read()
+    want_launches = cfg.encoder.n_layers * 3 if device == "cuda" else 0
+    if prof_row["attention_launches"] != want_launches or (
+            device == "cuda" and not kernel_in_trace):
+        raise AssertionError(f"cli profile: {prof_row}, attention kernel in "
+                             f"the trace: {kernel_in_trace}")
+    out["profile"] = {**prof_row, "kernel_in_trace": kernel_in_trace}
+    with open(sweep_out) as f:
+        sweep = [json.loads(ln) for ln in f]
+    table = results["sweep"][1].split("rank ")[-1].splitlines()[1:]
+    if len(sweep) != 2 or len(table) != 2 or not all(
+            np.isfinite(r["gate_auc"]) for r in sweep):
+        raise AssertionError(f"cli sweep: {sweep}, table {table}")
+    out["sweep"] = {"records": sweep, "ranking": table}
+    # the exported files load strict=True into fresh modules
+    enc_sd, head_sd = load_reference_checkpoint(enc, head)
+    fresh_enc, fresh_head = build(cfg, device=device, seed=SEED + 1)
+    fresh_enc.load_state_dict(enc_sd, strict=True)
+    fresh_head.load_state_dict(head_sd, strict=True)
+    aucs = [auc_line(results[n][1])
+            for n in ("evaluate_ckpt", "evaluate_torch_ckpt")]
+    if not np.isfinite(aucs[0]) or abs(aucs[0] - aucs[1]) > 1e-9:
+        raise AssertionError(f"cli evaluate: --ckpt AUC {aucs[0]}, "
+                             f"--torch-ckpt AUC {aucs[1]}")
+    out.update(evaluate_auc_ckpt=aucs[0], evaluate_auc_torch_ckpt=aucs[1],
+               export_keys=len(enc_sd) + len(head_sd),
+               passed=sorted(results), card=card)
+    return out
+
+
+def auc_line(stdout: str) -> float:
+    return float([ln for ln in stdout.splitlines()
+                  if ln.startswith("auc = ")][-1].split("=")[1])
+
+
 def stream_requests(items) -> list:
     """The test split as JSONL push requests, one clip at a time round-robin
     over the videos (stream ``v<index>``), base64 f32 payloads, then
@@ -1372,6 +1678,18 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         t0 = time.perf_counter()
+        pack_row, pack, best = run_pack(cfg_t, store, test_videos, root,
+                                        card)
+        print("pack " + json.dumps(pack_row))
+        walls["pack"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        cli_row = run_cli(cfg_t, pack, best, store, root, card)
+        print("cli " + json.dumps(cli_row))
+        walls["cli"] = time.perf_counter() - t0
+        os.remove(pack)
+
+        t0 = time.perf_counter()
         coteach = run_coteach(*set_up_coteach(cfg_t, root), store,
                               test_videos, root, card)
         print("coteach " + json.dumps(coteach))
@@ -1418,7 +1736,10 @@ def main() -> int:
                "coteach": coteach["launches"], "ucf": ucf["launches"],
                "tencrop": tencrop["launches"], "serve": serve["launches"],
                "serve_mp": serve_mp["launches"],
-               "export": export["launches"]}
+               "export": export["launches"],
+               "pack_fit": pack_row["fit_pack"]["launches"],
+               "pack_fit_memory": pack_row["fit_memory"]["launches"],
+               "cli_profile": cli_row["profile"]["attention_launches"]}
     print(json.dumps({"kernels": [{
         "name": "attention", "route": "cuda",
         "source": "lstc_vad_tpu_torch/csrc/attention.cu",

@@ -4,32 +4,39 @@ A second package beside the JAX one, which stays the reference every part of
 this package is held against (tests/test_torch_*.py).  It imports torch and
 numpy, and nothing of JAX or of ``lstc_vad_tpu``.
 
-What is ported so far: the evaluation forward, training, pseudo labels and
-co-teaching, for SHT, UBnormal and UCF (tenCrop stores included), serving
-and AOT export:
+What is ported: the evaluation forward, training, pseudo labels and
+co-teaching, for SHT, UBnormal and UCF (tenCrop stores included), serving,
+AOT export, the ``.lstcpack`` data layer and every CLI subcommand but
+``benchmark``:
 
 - ``models``      — encoder (STN/LTN) and Regressor/Classifier heads as
                     ``nn.Module``s, with the reference's state_dict key layout.
 - ``ops``         — attention: the plain PyTorch version and a CUDA kernel
                     written for Hopper (``csrc/attention.cu``), built with
-                    ``nvcc`` at first use.
+                    ``nvcc`` at first use; ``ops/_build.py`` also builds the
+                    host C++ pack reader (``csrc/packstore.cpp``) with g++.
 - ``ckpt``        — JAX param trees and the reference's ``.ckpt`` files into
-                    this package's state_dicts; checkpoints of the train
-                    state, synchronous or in the background.
+                    this package's state_dicts and back out to the
+                    reference's files; checkpoints of the train state,
+                    synchronous or in the background.
 - ``evaluation``  — part chunking, the batched scorers (UCF's included), the
                     eval drivers and the metric zoo.
-- ``data``        — annotation parsers, the HDF5 feature store, the paired
-                    train dataset and its prefetcher, the test split, and
-                    synthetic splits.
+- ``data``        — annotation parsers, the HDF5 and ``.lstcpack`` feature
+                    stores (the pack's native batch gather), the paired
+                    train dataset and its prefetcher, the test split,
+                    dataset validation and synthetic splits.
 - ``objectives``, ``train`` — the losses, Adagrad, the train steps and the
                     Trainer.
 - ``pseudo``      — the pseudo-label generators and the co-teaching driver.
 - ``serving``, ``serving_mp`` — the streaming scorer and its JSONL server;
                     torch-free workers behind one batching backend.
 - ``export``      — ``torch.export`` artifacts of the eval scorer.
+- ``utils``, ``parallel`` — logging, profiling; the ``--mesh auto``
+                    factorization (the mesh itself is ROADMAP A18).
 - ``cli``         — ``python -m lstc_vad_tpu_torch train | gen-pseudo |
                     evaluate | coteach | export-aot | serve |
-                    serve-backend``.
+                    serve-backend | pack | validate-data | export-torch |
+                    info | profile | sweep``.
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
 Importing the package imports nothing else: a serving worker (serving_mp.py)

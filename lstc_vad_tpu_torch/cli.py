@@ -1,7 +1,7 @@
-"""CLI of the PyTorch package — the ``train``, ``gen-pseudo``, ``evaluate``,
-``coteach``, ``export-aot``, ``serve`` and ``serve-backend`` subcommands of
-lstc_vad_tpu/cli/main.py:359-675, 895-1100, 1109-1292 (SHT, UBnormal and
-UCF; STN and LTN; tenCrop stores):
+"""CLI of the PyTorch package — the subcommands of
+lstc_vad_tpu/cli/main.py:359-1302 but ``benchmark`` (SHT, UBnormal and UCF;
+STN and LTN; tenCrop stores; features from an HDF5 file or, with
+``--set data.pack_path=feats.lstcpack``, from a pack):
 
     python -m lstc_vad_tpu_torch train --preset sht_ltn --h5 feats.h5 \\
         --train-txt SH_Train_new.txt --test-txt SH_Test_NEW.txt \\
@@ -34,7 +34,22 @@ UCF; STN and LTN; tenCrop stores):
         --socket /tmp/b.sock [--ckpt best.pt | --artifact DIR] \\
         [--max-batch 128] [--window-ms 2]
 
-The flags are the JAX CLI's.  ``--mesh`` / ``--multihost`` are refused with
+    python -m lstc_vad_tpu_torch pack --h5 feats.h5 --out feats.lstcpack
+    python -m lstc_vad_tpu_torch validate-data --preset sht_ltn \\
+        --set data.pack_path=feats.lstcpack --train-txt ... --test-txt ...
+    python -m lstc_vad_tpu_torch export-torch --preset sht_ltn \\
+        --ckpt best.pt --encoder-out enc.ckpt --head-out head.ckpt
+    python -m lstc_vad_tpu_torch info
+    python -m lstc_vad_tpu_torch profile --preset sht_ltn --mode eval \\
+        --steps 5 --out prof/
+    python -m lstc_vad_tpu_torch sweep --preset sht_ltn \\
+        --grid optim.lr_encoder=1e-4,5e-5 --out sweep.jsonl [--rank-by test]
+
+The flags are the JAX CLI's; every subcommand with the common flags takes
+``--log-dir`` (train writes every config field there; evaluate and
+gen-pseudo log there when given it).  ``pack`` needs h5py, so it runs on a
+machine that has it; every other subcommand reads a pack without h5py.
+``--mesh`` / ``--multihost`` are refused with
 the roadmap item that ports them (A18); ``export-aot --platforms`` is
 refused, since this package's artifact is device-portable.  Everything runs
 on the card unless ``--device cpu`` is given; a ``serve --backend`` worker
@@ -50,11 +65,11 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import logging
 import sys
 import typing
 
 from .config import PRESETS, TrainConfig, preset, replace
+from .utils.logging import get_logger, log_config
 
 
 def _valid_paths(cfg) -> list:
@@ -200,11 +215,14 @@ def _reject_ckpt_flags_with_artifact(args):
 
 def _eval_trainer(cfg: TrainConfig, args, cmd: str, weights: bool = True):
     """An eval-only Trainer on ``--device`` holding the weights the
-    checkpoint flags name (``weights``; off when an artifact scores)."""
+    checkpoint flags name (``weights``; off when an artifact scores), with a
+    log file in ``--log-dir`` when given one."""
     from .train.driver import Trainer
 
     _check_ckpt_flags(args)
-    trainer = Trainer(_eval_knobs(cfg), eval_only=True, device=args.device)
+    logger = get_logger(cmd, log_dir=args.log_dir) if args.log_dir else None
+    trainer = Trainer(_eval_knobs(cfg), eval_only=True, device=args.device,
+                      logger=logger)
     if weights:
         _load_weights(trainer.state, args, cmd)
     return trainer
@@ -295,8 +313,6 @@ def cmd_evaluate(args):
     cfg = _parse_eval_crop(cfg, args.eval_crop)
     d = cfg.data
     stn = cfg.model.startswith("stn")
-    if d.pack_path:
-        raise SystemExit(".lstcpack stores are not ported yet (ROADMAP A6)")
     if args.dump_scores and args.per_class:
         raise SystemExit("--dump-scores exports per-video eval scores; it "
                          "cannot be combined with --per-class")
@@ -467,19 +483,14 @@ def cmd_gen_pseudo(args):
     return 0
 
 
-def _logger():
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(levelname)s %(message)s")
-    return logging.getLogger("lstc_vad_tpu_torch")
-
-
 def cmd_train(args):
     from .ckpt import save_checkpoint
     from .train.driver import Trainer
 
     _refuse_unported(args)
     cfg = _apply_common(preset(args.preset), args)
-    logger = _logger()
+    logger = get_logger("train", log_dir=args.log_dir)
+    log_config(logger, cfg)
     trainer = Trainer(cfg, logger=logger, device=args.device)
     if args.resume:
         trainer.restore_state(args.resume)
@@ -515,7 +526,8 @@ def cmd_coteach(args):
     driver = CoTeachingDriver(stn_cfg, ltn_cfg, args.workdir,
                               stn_threshold=args.stn_threshold,
                               ltn_threshold=args.ltn_threshold,
-                              logger=_logger(), device=args.device)
+                              logger=get_logger("coteach"),
+                              device=args.device)
     driver.run(args.rounds, args.stn_epochs, args.ltn_epochs)
     return 0
 
@@ -714,6 +726,219 @@ def cmd_serve_backend(args):
     return 0
 
 
+def cmd_pack(args):
+    """Convert a reference h5 feature file into a ``.lstcpack`` (needs
+    h5py: run it where the h5 lives; the card reads the pack without
+    it)."""
+    from .data.packed import pack_h5
+
+    pack_h5(args.h5, args.out)
+    print(f"packed {args.h5} -> {args.out}")
+    return 0
+
+
+def cmd_validate_data(args):
+    """Walk every data artifact the config points at and report every
+    inconsistency (data/validate.py); exit 1 when there is one."""
+    from .data.validate import validate_data
+
+    _refuse_unported(args)
+    cfg = _apply_common(preset(args.preset), args)
+    problems, stats = validate_data(cfg)
+    print("stats: " + ", ".join(f"{k}={v}" for k, v in sorted(stats.items())))
+    if problems:
+        for problem in problems:
+            print(f"PROBLEM: {problem}")
+        print(f"{len(problems)} problem(s) found")
+        return 1
+    print("ok: all referenced data artifacts are consistent")
+    return 0
+
+
+def cmd_export_torch(args):
+    """Write a checkpoint of this package (parameters or a full state) as
+    the reference's two torch state_dict files, which its evaluation
+    scripts load (ckpt/torch_export.py)."""
+    from .ckpt import load_checkpoint
+    from .ckpt.torch_export import save_torch_checkpoint
+    from .train.state import create_train_state
+
+    _refuse_unported(args)
+    cfg = _apply_common(preset(args.preset), args)
+    state = create_train_state(cfg, device=args.device)
+    load_checkpoint(args.ckpt, state)
+    save_torch_checkpoint(state.encoder, state.head, args.encoder_out,
+                          args.head_out)
+    print(f"wrote {args.encoder_out} and {args.head_out}")
+    return 0
+
+
+def cmd_info(args):
+    """Versions, the devices and their memory, whether each native library
+    is built, the presets and the ``--mesh auto`` factorization."""
+    import os
+
+    import torch
+
+    from . import __version__
+    from .device import resolve_device
+    from .ops import _build
+    from .parallel.mesh import factor_devices
+
+    dev = resolve_device(args.device)
+    print(f"lstc_vad_tpu_torch {__version__} | torch {torch.__version__} | "
+          f"CUDA {torch.version.cuda} | device {dev}")
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if dev.type == "cuda":
+        print(f"{n_cards} visible card(s):")
+        for i in range(n_cards):
+            free, total = torch.cuda.mem_get_info(i)
+            print(f"  [{i}] {torch.cuda.get_device_name(i)}  "
+                  f"{(total - free) / 1e9:.2f}/{total / 1e9:.2f} GB in use")
+    else:
+        print(f"host: {os.cpu_count()} cores")
+    print(f"native libraries ({_build.BUILD_DIR}):")
+    for name, source in _build.SOURCES.items():
+        path = _build.library_path(name)
+        state = f"built ({path.name})" if path.exists() else "not built"
+        print(f"  {name} ({source}): {state}")
+    dp, tp = factor_devices(max(n_cards, 1), 8)
+    print(f"--mesh auto would build data={dp} x model={tp} (a device mesh "
+          "is ROADMAP A18)")
+    print(f"presets: {', '.join(sorted(PRESETS))}")
+    return 0
+
+
+def cmd_profile(args):
+    """A torch.profiler trace of the train step or the eval forward at the
+    preset's shapes on synthetic data, the first two calls (the kernel's
+    library load and warm-up) outside the trace; prints one JSON line."""
+    import json
+    import os
+    import time
+
+    import numpy as np
+    import torch
+
+    from .evaluation.scoring import _scorer_apply
+    from .ops import cuda_attention
+    from .train.state import create_train_state
+    from .utils.profiling import TRACE_FILE, device_busy_ms, trace
+
+    _refuse_unported(args)
+    cfg = _apply_common(preset(args.preset), args)
+    if args.steps < 1:
+        raise SystemExit(f"--steps must be >= 1, got {args.steps}")
+    d, dd = cfg.encoder.d_model, cfg.data
+    if args.mode == "eval":
+        cfg = _eval_knobs(cfg)
+    state = create_train_state(cfg, device=args.device)
+    dev = next(state.encoder.parameters()).device
+    rng = np.random.default_rng(0)
+
+    def on_device(shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    if args.mode == "train":
+        from .train.steps import make_train_step
+
+        step_fn = make_train_step(cfg)
+        fshape = (dd.batch_size, dd.part_num * dd.part_len, dd.n_patch, d)
+        norm, abnorm = on_device(fshape), on_device(fshape)
+        labs = torch.from_numpy(rng.random(
+            (dd.batch_size, dd.part_num * dd.part_len)).astype(
+                np.float32)).to(dev)
+
+        def one_step():
+            # the step updates ``state`` in place and returns it
+            return step_fn(state, norm, labs, abnorm, labs)[1]["loss"]
+    else:
+        x = on_device((args.eval_batch, _eval_token_len(cfg), d))
+        state.encoder.eval()
+        state.head.eval()
+
+        def one_step():
+            with torch.inference_mode():
+                return _scorer_apply(state.encoder, state.head,
+                                     cfg.head.kind, False, x)
+
+    float(one_step().sum())  # the kernel's library loads here
+    float(one_step().sum())  # warm
+    cuda_attention.reset_launches()
+    with trace(args.out):
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            last = one_step()
+        float(last.sum())  # drain inside the trace window
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    path = os.path.join(args.out, TRACE_FILE)
+    busy = device_busy_ms(path) if dev.type == "cuda" else None
+    print(f"trace written to {path} ({args.steps} {args.mode} steps; open "
+          "it in Perfetto or chrome://tracing)")
+    print(json.dumps({
+        "mode": args.mode, "steps": args.steps, "device": str(dev),
+        "wall_ms": wall_ms, "device_busy_ms": busy,
+        "device_idle_share": None if busy is None else 1.0 - busy / wall_ms,
+        "attention_launches": cuda_attention.launches}))
+    return 0
+
+
+def cmd_sweep(args):
+    """Grid search over config fields: each --grid PATH=v1,v2,... axis is
+    typed like --set; every combination trains a fresh model, and the
+    ranked AUCs are printed and appended as JSON lines to --out."""
+    import itertools
+    import json
+
+    from .train.driver import Trainer
+
+    _refuse_unported(args)
+    base = _apply_common(preset(args.preset), args)
+    axes = []
+    for item in args.grid or []:
+        path, _, raw = item.partition("=")
+        values = [v for v in raw.split(",") if v]
+        if not values:
+            raise SystemExit(f"--grid {path}: needs at least one value")
+        if any(path == seen for seen, _ in axes):
+            raise SystemExit(f"--grid {path}: duplicate axis (the later one "
+                             "would silently shadow the earlier)")
+        axes.append((path, [_coerce(base, path, v) for v in values]))
+    if not axes:
+        raise SystemExit("sweep needs at least one --grid PATH=v1,v2,...")
+    results = []
+    combos = list(itertools.product(*(vals for _, vals in axes)))
+    for i, combo in enumerate(combos):
+        overrides = {path: val for (path, _), val in zip(axes, combo)}
+        cfg = replace(base, **overrides)
+        trainer = Trainer(cfg, device=args.device)
+        r = trainer.fit(epochs=args.epochs)
+        trainer.store.close()
+        gate = r.best_train_auc if cfg.eval_train_split else r.best_test_auc
+        rec = {"run": i, **overrides, "best_test_auc": r.best_test_auc,
+               "best_test_epoch": r.best_test_epoch,
+               "best_train_auc": r.best_train_auc, "gate_auc": gate}
+        results.append(rec)
+        print(f"[sweep {i + 1}/{len(combos)}] {overrides} -> "
+              f"test {r.best_test_auc:.4f}")
+        if args.out:
+            with open(args.out, "a") as f:
+                f.write(json.dumps(rec) + "\n")
+    # rank by the criterion the preset's model selection gates on (train
+    # AUC for SHT presets, test AUC otherwise) unless told otherwise
+    rank_key = "gate_auc" if args.rank_by == "gate" else "best_test_auc"
+    results.sort(key=lambda r: -r[rank_key])
+    print(f"rank  {'gate_auc':>8}  test_auc  overrides")
+    for rank, rec in enumerate(results, 1):
+        overrides = {k: v for k, v in rec.items()
+                     if k not in ("run", "best_test_auc", "best_test_epoch",
+                                  "best_train_auc", "gate_auc")}
+        print(f"{rank:>4}  {rec['gate_auc']:8.4f}  "
+              f"{rec['best_test_auc']:.4f}  {overrides}")
+    return 0
+
+
 def _add_data(p):
     p.add_argument("--h5")
     p.add_argument("--train-txt", dest="train_txt")
@@ -737,6 +962,9 @@ def _add_common(p):
     p.add_argument("--pseudo-labels", dest="pseudo_labels")
     p.add_argument("--epochs", type=int)
     p.add_argument("--save-dir", dest="save_dir")
+    p.add_argument("--log-dir", dest="log_dir",
+                   help="write a log file here (train/evaluate/gen-pseudo; "
+                        "other commands report on stderr/stdout only)")
     p.add_argument("--metrics-jsonl", dest="metrics_jsonl",
                    help="append structured per-epoch/eval metrics (one JSON "
                         "line each) to this file")
@@ -869,6 +1097,62 @@ def main(argv=None):
                    help="coalescing window: how long to wait for more "
                         "workers' rows before dispatching a partial batch")
     b.set_defaults(fn=cmd_serve_backend)
+
+    k = sub.add_parser("pack", help="convert a reference h5 feature file "
+                                    "into a .lstcpack store (needs h5py)")
+    k.add_argument("--h5", required=True)
+    k.add_argument("--out", required=True)
+    k.set_defaults(fn=cmd_pack)
+
+    vd = sub.add_parser("validate-data",
+                        help="check the h5 or pack, annotation txts, frame "
+                             "masks and pseudo labels for consistency "
+                             "(metadata only, reports every problem)")
+    _add_common(vd)
+    vd.set_defaults(fn=cmd_validate_data)
+
+    et = sub.add_parser("export-torch",
+                        help="write a checkpoint as the reference's two "
+                             "torch state_dict files (encoder + head)")
+    _add_common(et)
+    et.add_argument("--ckpt", required=True,
+                    help="a checkpoint file of this package (params or a "
+                         "full train state)")
+    et.add_argument("--encoder-out", dest="encoder_out", required=True)
+    et.add_argument("--head-out", dest="head_out", required=True)
+    et.set_defaults(fn=cmd_export_torch)
+
+    i = sub.add_parser("info", help="print versions, devices and their "
+                                    "memory, native libraries, presets and "
+                                    "the auto-mesh factorization")
+    i.add_argument("--device", default="cuda",
+                   help="'cuda' (default; fails without a card) or 'cpu'")
+    i.set_defaults(fn=cmd_info)
+
+    pr = sub.add_parser("profile",
+                        help="write a torch.profiler trace of the train "
+                             "step or the eval forward at preset shapes")
+    _add_common(pr)
+    pr.add_argument("--mode", choices=("train", "eval"), default="train")
+    pr.add_argument("--steps", type=int, default=5)
+    pr.add_argument("--eval-batch", dest="eval_batch", type=int, default=1024)
+    pr.add_argument("--out", required=True, help="trace directory")
+    pr.set_defaults(fn=cmd_profile)
+
+    sw = sub.add_parser("sweep",
+                        help="grid search: train every combination of "
+                             "--grid PATH=v1,v2,... overrides, rank by AUC")
+    _add_common(sw)
+    sw.add_argument("--grid", action="append", metavar="PATH=V1,V2,...",
+                    help="config axis to sweep (typed like --set); repeat "
+                         "for a cartesian product")
+    sw.add_argument("--out", help="append one JSON line per run")
+    sw.add_argument("--rank-by", dest="rank_by", choices=("gate", "test"),
+                    default="gate",
+                    help="ranking criterion: 'gate' = the preset's model-"
+                         "selection AUC (train split for SHT), 'test' = best "
+                         "test AUC")
+    sw.set_defaults(fn=cmd_sweep)
 
     args = p.parse_args(argv)
     return args.fn(args)

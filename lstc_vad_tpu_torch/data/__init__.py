@@ -6,4 +6,5 @@ from .datasets import (  # noqa: F401
     load_train_records,
 )
 from .feature_store import FeatureStore  # noqa: F401
+from .packed import PackedStore  # noqa: F401
 from .pipeline import BatchIterator, Prefetcher  # noqa: F401

@@ -10,8 +10,12 @@ first ``n_patch`` patches kept; labels come from the pseudo-label dict when
 given (entries of shape [L] or [L,2] — last column used), else constant 0/1.
 With a tenCrop store a crop is drawn per pair (SHT/UBnormal) or per video
 (UCF) from the dataset's own generator, in the JAX package's order, so the
-batches stay bit-equal.  The ``PackedStore`` gather fast paths are not
-ported yet (ROADMAP A6).
+batches stay bit-equal.  Over a store with the gather fast paths
+(data/packed.py ``PackedStore``), and with no crop and no doubling, only the
+window indices are drawn on the host: per item through ``store.gather``,
+or for a whole batch through ``get_batch`` and one native
+``store.gather_batch`` call.  Both draw from the generator in the per-item
+order, so every path gives the same batches bit for bit.
 
 Test videos carry per-frame annotations: zeros(n_frames) for normal, the GT
 mask .npy (SHT/UBnormal, utils/load_dataset.py:119-126) or GT h5 row (UCF,
@@ -96,6 +100,15 @@ class PairedTrainDataset:
         return self.pseudo_labels[key]
 
     def _sample_video(self, rec: TrainRecord, crop: Optional[int]):
+        if (hasattr(self.store, "gather") and crop is None
+                and not self.double_short):
+            # index-only sampling and one gather call, no whole-video copy
+            feat_len = self.store.n_clips(rec.key)
+            labs = _labels_for(self._pseudo_for(rec.key), feat_len,
+                               rec.is_abnormal)
+            idx = sample_part_indices(feat_len, self.part_num, self.part_len,
+                                      self.sample, self.rng)
+            return self.store.gather(rec.key, idx, self.n_patch), labs[idx]
         feat = (self.store.get(rec.key) if crop is None
                 else self.store.get(rec.key, crop=crop))
         labs = _labels_for(self._pseudo_for(rec.key), feat.shape[0],
@@ -125,6 +138,39 @@ class PairedTrainDataset:
         af, al = self._sample_video(self.abnormal[self._abnorm_perm[item]],
                                     crop)
         return nf, nl, af, al
+
+    def get_batch(self, start: int, stop: int):
+        """Items ``start..stop-1`` stacked as (norm_feats, norm_labs,
+        abnorm_feats, abnorm_labs) through one ``store.gather_batch`` call,
+        or None when the store has no batch gather or the dataset crops or
+        doubles (the caller then builds the batch per item).  The window
+        indices are drawn per item, normal then abnormal, as
+        ``__getitem__`` draws them."""
+        if not (hasattr(self.store, "gather_batch") and not self.ten_crop
+                and not self.double_short):
+            return None
+        n = stop - start
+        keys: list = [None] * (2 * n)
+        idx = np.empty((2 * n, self.part_num * self.part_len), dtype=np.int64)
+        labs = np.empty((2 * n, idx.shape[1]), dtype=np.float32)
+        for j, item in enumerate(range(start, stop)):
+            for half, (recs, perm) in enumerate(
+                    ((self.normal, self._norm_perm),
+                     (self.abnormal, self._abnorm_perm))):
+                rec = recs[perm[item]]
+                feat_len = self.store.n_clips(rec.key)
+                row = sample_part_indices(feat_len, self.part_num,
+                                          self.part_len, self.sample,
+                                          self.rng)
+                # normals fill rows [0, n), abnormals [n, 2n)
+                slot = j + half * n
+                keys[slot] = rec.key
+                idx[slot] = row
+                labs[slot] = _labels_for(self._pseudo_for(rec.key), feat_len,
+                                         rec.is_abnormal)[row]
+        _, _, d_model = self.store.shape(keys[0])
+        feats = self.store.gather_batch(keys, idx, self.n_patch, d_model)
+        return feats[:n], labs[:n], feats[n:], labs[n:]
 
 
 @dataclasses.dataclass

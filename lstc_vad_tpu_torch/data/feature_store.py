@@ -7,8 +7,10 @@ into RAM when the store opens, as the reference's SHT/UBnormal train sets do
 (:29-48).  A tenCrop store (``ten_crop=True``) reshapes each video to
 [-1, 10, n_patch, d_model]; ``get(key, crop=c)`` selects one crop, as the
 reference's tenCrop loaders do (:168,172,413), and ``CropView`` fixes the crop
-for the paths that need one.  ``h5py`` is imported when a store opens, so
-importing the package does not need it.
+for the paths that need one.  ``shape`` and ``keys`` read metadata only
+(data/validate.py walks them).  ``h5py`` is imported when a store opens, so
+importing the package does not need it; data/packed.py's ``PackedStore``
+serves the same interface from a ``.lstcpack`` file without h5py.
 """
 
 from __future__ import annotations
@@ -65,6 +67,17 @@ class FeatureStore:
         if self._ten_crop:
             return int(np.prod(shape)) // (10 * self._n_patch * self._d_model)
         return shape[0]
+
+    def shape(self, key: str):
+        """The stored shape (before the tenCrop reshape), metadata only."""
+        with self._lock:
+            return tuple(self._h5[key + ".npy"].shape)
+
+    def keys(self):
+        """Every video key in the store (".npy" suffix stripped)."""
+        with self._lock:
+            return [k[:-4] if k.endswith(".npy") else k
+                    for k in self._h5.keys()]
 
     def close(self):
         self._h5.close()

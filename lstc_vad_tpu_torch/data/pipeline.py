@@ -47,8 +47,16 @@ class BatchIterator:
     def __iter__(self) -> Iterator[Batch]:
         n = len(self.dataset)
         end = n - n % self.batch_size if self.drop_last else n
+        get_batch = getattr(self.dataset, "get_batch", None)
         for start in range(0, end, self.batch_size):
             stop = min(start + self.batch_size, n)
+            if get_batch is not None:
+                # the whole-batch gather (a PackedStore), when the dataset
+                # can take it; None means build the batch per item
+                batch = get_batch(start, stop)
+                if batch is not None:
+                    yield batch
+                    continue
             items = [self.dataset[i] for i in range(start, stop)]
             yield tuple(np.stack([it[j] for it in items]) for j in range(4))
 

@@ -9,9 +9,11 @@ the test (and optionally train) split, AUC-gated checkpoints, and an
 asynchronous autosave of the full state every N epochs.
 
 SHT, UBnormal and UCF are ported, tenCrop stores included (a crop drawn per
-training pair or video; evaluation at the fixed ``data.eval_crop``).  Not
-yet: ``.lstcpack`` stores (ROADMAP A6), a narrower wire type for batches
-(A19) and a device mesh (A18); each raises ``NotImplementedError``.
+training pair or video; evaluation at the fixed ``data.eval_crop``).
+Features come from ``data.pack_path`` (a ``.lstcpack``, data/packed.py:
+batches through its native gather, no h5py) when it is set, else from the
+HDF5 file ``data.h5_path``.  Not yet: a narrower wire type for batches
+(ROADMAP A19) and a device mesh (A18); each raises ``NotImplementedError``.
 
 Modes: a step puts the modules in train mode (train/steps.py) and
 ``evaluate`` puts them in eval mode, so in-training evaluation runs without
@@ -31,9 +33,9 @@ import numpy as np
 
 from ..ckpt.io import load_checkpoint, save_checkpoint, wait_for_saves
 from ..config import TrainConfig
-from ..data import (BatchIterator, FeatureStore, PairedTrainDataset,
-                    Prefetcher, load_pseudo_labels, load_test_videos,
-                    load_train_records)
+from ..data import (BatchIterator, FeatureStore, PackedStore,
+                    PairedTrainDataset, Prefetcher, load_pseudo_labels,
+                    load_test_videos, load_train_records)
 from ..device import resolve_device
 from ..evaluation.drivers import (evaluate_ltn, evaluate_stn,
                                   evaluate_ucf_ltn, evaluate_ucf_stn)
@@ -56,9 +58,6 @@ class TrainResult:
 
 def _check_supported(cfg: TrainConfig):
     d = cfg.data
-    if d.pack_path:
-        raise NotImplementedError(".lstcpack stores are not ported yet "
-                                  "(ROADMAP A6)")
     if d.transfer_dtype != "float32":
         raise NotImplementedError(
             f"data.transfer_dtype={d.transfer_dtype!r}: batches travel as "
@@ -71,8 +70,9 @@ class Trainer:
 
     ``store`` / ``test_videos``: reuse a feature store (any object with
     ``get`` and ``n_clips``) and a test split instead of opening
-    ``data.h5_path`` and reading ``data.test_txt`` — co-teaching keeps
-    every round's Trainer alive, and shares them (pseudo/coteach.py).
+    ``data.pack_path`` or ``data.h5_path`` and reading ``data.test_txt`` —
+    co-teaching keeps every round's Trainer alive, and shares them
+    (pseudo/coteach.py).
 
     ``eval_only``: build no paired dataset and no train step, read the test
     split lazily, and allow an empty train list (the evaluate and
@@ -106,6 +106,9 @@ class Trainer:
             raise ValueError("training requires data.train_txt")
         if store is not None:
             self.store = store
+        elif d.pack_path:
+            self.store = PackedStore(d.pack_path, ten_crop=d.ten_crop,
+                                     n_patch=d.n_patch, d_model=d.d_model)
         else:
             eager = d.eager and records and not eval_only
             self.store = FeatureStore(

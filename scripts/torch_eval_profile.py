@@ -23,25 +23,17 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+from lstc_vad_tpu_torch.utils.profiling import (  # noqa: E402
+    DEVICE_CATEGORIES, device_busy_ms)
+
 CATEGORIES = (("attention_kernel", re.compile(r"attention_fwd_kernel")),
               ("gemm", re.compile(r"gemm|sm90_xmma|cutlass|cublas", re.I)))
-
-
-def _union_us(intervals):
-    busy, end = 0.0, float("-inf")
-    for start, stop in sorted(intervals):
-        if stop <= end:
-            continue
-        busy += stop - max(start, end)
-        end = stop
-    return busy
 
 
 def summarize(trace_path: str, wall_s: float) -> dict:
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
-    device = [e for e in events
-              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    device = [e for e in events if e.get("cat") in DEVICE_CATEGORIES]
     by_cat, by_name = {}, {}
     for e in device:
         name = e["name"]
@@ -49,7 +41,7 @@ def summarize(trace_path: str, wall_s: float) -> dict:
             (c for c, pat in CATEGORIES if pat.search(name)), "other")
         by_cat[cat] = by_cat.get(cat, 0.0) + e["dur"] / 1e3
         by_name[name] = by_name.get(name, 0.0) + e["dur"] / 1e3
-    busy_ms = _union_us([(e["ts"], e["ts"] + e["dur"]) for e in device]) / 1e3
+    busy_ms = device_busy_ms(trace_path)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / (wall_s * 1e3),

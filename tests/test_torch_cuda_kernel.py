@@ -318,3 +318,57 @@ def test_exported_program_launches_the_kernel_on_the_card(card, tmp_path,
                                  torch.from_numpy(x).to(card)).cpu().numpy()
         np.testing.assert_allclose(got, want, rtol=0, atol=5e-5)
     assert loaded.score(x[:1]).shape == (1,)
+
+
+def test_fit_from_a_pack_equals_fit_from_memory(card, tmp_path):
+    """One fit(1) step of a small sht_ltn from a .lstcpack (batches through
+    get_batch and the native gather) and from the same features in memory
+    (per item), at the preset's dropouts from the same seed: the same
+    batches and dropout masks, so the same loss; the train-split evaluation
+    after the step launches the kernel once a layer per encoder call.  The
+    updated parameters agree to rtol 1e-5 (the RPE table's gradient is
+    summed with atomics, in no fixed order), and so do the AUCs, to 1e-4."""
+    from lstc_vad_tpu_torch.config import preset, replace
+    from lstc_vad_tpu_torch.data.annotations import TrainRecord
+    from lstc_vad_tpu_torch.data.packed import write_pack
+    from lstc_vad_tpu_torch.data.synthetic import (SyntheticStore,
+                                                   write_train_files)
+    from lstc_vad_tpu_torch.train.driver import Trainer
+
+    rng = np.random.default_rng(2)
+    feats, records, masks = {}, [], {}
+    for i in range(10):
+        key, abnormal, n = f"v{i:02d}", i >= 6, int(rng.integers(12, 30))
+        feats[key] = rng.standard_normal((n, 16, 64), dtype=np.float32)
+        records.append(TrainRecord(key, abnormal))
+        if abnormal:
+            masks[key] = (np.arange(n * 16) < n * 8).astype(np.float64)
+    train_txt, mask_dir = write_train_files(str(tmp_path), records, masks)
+    pack = str(tmp_path / "feats.lstcpack")
+    write_pack(pack, feats.items())
+    cfg = preset("sht_ltn", **{
+        "encoder.d_model": 64, "encoder.d_inner": 96, "encoder.n_head": 2,
+        "encoder.d_k": 32, "encoder.d_v": 32, "encoder.n_layers": 2,
+        "head.d_model": 64, "head.hidden_dim": 16, "data.n_patch": 16,
+        "data.d_model": 64, "data.train_txt": train_txt,
+        "data.test_mask_dir": mask_dir, "data.batch_size": 4,
+        "model_save_dir": str(tmp_path / "ckpt")})
+    runs = {}
+    for name, kw in (("pack", {"data.pack_path": pack}), ("memory", {})):
+        store = None if kw else SyntheticStore(feats)
+        trainer = Trainer(replace(cfg, **kw), store=store, test_videos=[],
+                          device=card)
+        before = cuda_attention.launches
+        result = trainer.fit(1)
+        runs[name] = (trainer, result, cuda_attention.launches - before)
+    (tp, rp, lp), (tm, rm, lm) = runs["pack"], runs["memory"]
+    assert tp.store.native and rp.steps == rm.steps == 1
+    assert rp.history[0]["loss"] == pytest.approx(rm.history[0]["loss"],
+                                                  rel=1e-6)
+    assert abs(rp.history[0]["auc_train"] - rm.history[0]["auc_train"]) \
+        <= 1e-4
+    assert lp == lm == cfg.encoder.n_layers * tp.scorer.scorer.n_calls > 0
+    for (name, a), b in zip(tp.state.encoder.state_dict().items(),
+                            tm.state.encoder.state_dict().values()):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7, msg=name)
+

@@ -155,6 +155,28 @@ def test_cli_evaluate_matches_jax(sht, tmp_path, preset_name):
     assert abs(auc - ref_auc) <= 1e-4
 
 
+@pytest.mark.parametrize("preset_name", ["sht_ltn", "sht_stn"])
+def test_cli_evaluate_from_a_pack_matches_jax(sht, tmp_path, preset_name):
+    """``evaluate --set data.pack_path=...`` over a pack made from the h5:
+    the JAX AUC within 1e-4, and the port's own ``--h5`` AUC exactly."""
+    from lstc_vad_tpu_torch.data.packed import pack_h5
+
+    h5, _, test_txt, mask_dir = sht
+    cfg, params, ref_auc, _ = _jax_side(preset_name, h5, test_txt, mask_dir)
+    enc_path, head_path = str(tmp_path / "e.ckpt"), str(tmp_path / "h.ckpt")
+    save_torch_checkpoint(params, enc_path, head_path, cfg.head.kind,
+                          encoder_cfg=cfg.encoder)
+    pack = str(tmp_path / "feats.lstcpack")
+    pack_h5(h5, pack)
+    common = ["evaluate", "--preset", preset_name, "--test-txt", test_txt,
+              "--mask-dir", mask_dir, "--torch-ckpt", "--encoder-ckpt",
+              enc_path, "--head-ckpt", head_path, "--device", "cpu",
+              *SET_FLAGS]
+    auc = _run_cli([*common, "--set", f"data.pack_path={pack}"])
+    assert abs(auc - ref_auc) <= 1e-4
+    assert auc == _run_cli([*common, "--h5", h5])
+
+
 def test_entry_points_need_a_card_unless_told_cpu(sht):
     """Without a card, the default device fails loudly instead of running on
     the CPU."""
@@ -178,9 +200,9 @@ def test_entry_points_need_a_card_unless_told_cpu(sht):
 
 
 def test_cli_rejects_unported_paths(sht):
-    with pytest.raises(SystemExit, match="A6"):
+    with pytest.raises(SystemExit, match="A18"):
         cli.main(["evaluate", "--preset", "sht_ltn", "--device", "cpu",
-                  "--set", "data.pack_path=x.lstcpack"])
+                  "--mesh", "2x1"])
     with pytest.raises(SystemExit, match="unknown config path"):
         cli.main(["evaluate", "--preset", "sht_ltn", "--device", "cpu",
                   "--set", "encoder.nope=1"])

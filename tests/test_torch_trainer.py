@@ -6,8 +6,11 @@ Both trainers start from the same weights (JAX init, mapped by
 ckpt/interop.py), draw the same batches (the numpy sampler, same seed) and
 run 2 epochs with every dropout off and an evaluation after each.  Per-epoch
 losses agree at rel 2e-4, test and train AUCs within 1e-4, the final
-parameters at rtol 1e-3 / atol 1e-5 (the train-step tolerances).  Then
-``python -m lstc_vad_tpu_torch train --device cpu`` runs on the same set.
+parameters at rtol 1e-3 / atol 1e-5 (the train-step tolerances).  The
+same holds with the features read from a ``.lstcpack`` made from the h5
+(both Trainers then batch through their packs' native gathers).  Then
+``python -m lstc_vad_tpu_torch train --device cpu`` runs on the same set,
+from the h5 and from the pack.
 """
 
 import json
@@ -26,6 +29,8 @@ from lstc_vad_tpu.config import preset as jax_preset
 from lstc_vad_tpu.train.driver import Trainer as JaxTrainer
 from lstc_vad_tpu_torch.ckpt import load_checkpoint
 from lstc_vad_tpu_torch.config import preset, replace
+from lstc_vad_tpu_torch.data.packed import (PackedStore, PackFormatError,
+                                            pack_h5)
 from lstc_vad_tpu_torch.train.driver import Trainer
 
 from test_torch_train_step import (flat_from_jax, named_params, port_config,
@@ -56,9 +61,17 @@ def _overrides(sht, tmp_path):
             "inter_epoch": 1, "model_save_dir": str(tmp_path / "ckpt")}
 
 
-@pytest.mark.parametrize("preset_name", ["sht_ltn", "sht_stn"])
-def test_trainer_matches_jax(sht, tmp_path, preset_name):
-    jcfg = jax_preset(preset_name, **_overrides(sht, tmp_path))
+@pytest.fixture(scope="module")
+def sht_pack(sht, tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("pack") / "feats.lstcpack")
+    pack_h5(sht[0], path)
+    return path
+
+
+def _fit_against_jax(jcfg):
+    """The JAX Trainer and the port's, from the same JAX weights, fit 2
+    epochs; their losses, AUCs and final parameters must agree.  Returns
+    the port's Trainer."""
     jtrainer = JaxTrainer(jcfg)
     pcfg = port_config(jcfg)
     trainer = Trainer(pcfg, device="cpu")
@@ -82,6 +95,21 @@ def test_trainer_matches_jax(sht, tmp_path, preset_name):
         np.testing.assert_allclose(params[name].detach().numpy(), want,
                                    rtol=1e-3, atol=1e-5, err_msg=name)
     assert trainer.best_params is not None and trainer.eval_seconds > 0
+    return trainer
+
+
+@pytest.mark.parametrize("preset_name", ["sht_ltn", "sht_stn"])
+def test_trainer_matches_jax(sht, tmp_path, preset_name):
+    _fit_against_jax(jax_preset(preset_name, **_overrides(sht, tmp_path)))
+
+
+def test_trainer_from_a_pack_matches_jax(sht, sht_pack, tmp_path):
+    """``data.pack_path`` set: both Trainers read the same pack (batches
+    through get_batch and the native gather) and agree as from the h5."""
+    trainer = _fit_against_jax(jax_preset(
+        "sht_ltn", **_overrides(sht, tmp_path), **{"data.pack_path":
+                                                   sht_pack}))
+    assert isinstance(trainer.store, PackedStore) and trainer.store.native
 
 
 def test_evaluate_runs_in_eval_mode_and_steps_in_train_mode(sht, tmp_path):
@@ -120,7 +148,8 @@ def test_metrics_jsonl_best_params_and_iteration_log(sht, tmp_path, caplog):
 @pytest.mark.parametrize("change,error,match", [
     ({"data.dataset": "UCF", "eval_train_split": True}, ValueError,
      "UCF has no train-split"),
-    ({"data.pack_path": "x.lstcpack"}, NotImplementedError, "A6"),
+    ({"data.pack_path": "missing.lstcpack"}, PackFormatError,
+     "unreadable pack"),
     ({"data.transfer_dtype": "bfloat16"}, NotImplementedError, "A19"),
     ({"data.test_mask_dir": ""}, ValueError, "test_mask_dir"),
     ({"data.train_txt": ""}, ValueError, "train_txt"),
@@ -280,12 +309,31 @@ def test_cli_train_on_the_cpu(sht, tmp_path):
     assert load_checkpoint(state)["step"] == 3
 
 
+def test_cli_train_from_a_pack_equals_from_the_h5(sht, sht_pack, tmp_path):
+    """``train --set data.pack_path=...`` logs the same epochs as ``train
+    --h5``: the same batches, so the same losses and AUCs."""
+    h5, train_txt, test_txt, mask_dir = sht
+    common = ["--preset", "sht_ltn", "--device", "cpu", "--train-txt",
+              train_txt, "--test-txt", test_txt, "--mask-dir", mask_dir,
+              "--batch-size", "2", "--epochs", "2", "--set", "inter_epoch=1",
+              "--save-dir", str(tmp_path / "ckpt"), *SET_FLAGS]
+    records = []
+    for source in (["--h5", h5], ["--set", f"data.pack_path={sht_pack}"]):
+        jsonl = str(tmp_path / f"m{len(records)}.jsonl")
+        _cli(*common, *source, "--metrics-jsonl", jsonl)
+        with open(jsonl) as f:
+            records.append([{k: v for k, v in json.loads(line).items()
+                             if k in ("kind", "loss", "auc_test",
+                                      "auc_train")} for line in f])
+    assert records[0] == records[1] and len(records[0]) == 4
+
+
 def test_cli_train_rejects_unported_presets():
     from lstc_vad_tpu_torch import cli
 
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(SystemExit, match="A18"):
         cli.main(["train", "--preset", "sht_ltn", "--device", "cpu",
-                  "--set", "data.pack_path=x.lstcpack"])
+                  "--mesh", "auto"])
     with pytest.raises(SystemExit, match="unknown config path"):
         cli.main(["train", "--preset", "sht_ltn", "--device", "cpu",
                   "--set", "optim.nope=1"])
