@@ -13,9 +13,15 @@
    L=64, 65 and 128 (B=256), at B=2048 and at the main path's own shape,
    with and without bias, and at the main path's shape fed as the encoder
    feeds it (strided views of [B, L, H, D] buffers); the error must stay
-   within rtol 1e-4 / atol 1e-5.  Times the kernel, the plain version and,
-   as a yardstick the package never calls, F.scaled_dot_product_attention.
-   Prints ptxas's registers and spills of each kernel instantiation.
+   within rtol 1e-4 / atol 1e-5.  Then the bf16 route (csrc/attention_bf16
+   .cu) on bf16 q, k, v at every L above and the main path's shape, with
+   and without bias, contiguous and strided, against plain_sdpa on the same
+   bf16 inputs (rtol 1e-2, atol 2^-7 max|v|: see BF16_RTOL) and, no farther
+   than plain_sdpa x1.05, against attention in float64.  Times the kernel,
+   the plain version and, as a yardstick the package never calls,
+   F.scaled_dot_product_attention (its mask in q's type), with the bound at
+   the route's bytes per element and tensor-core rate.  Prints ptxas's
+   registers and spills of each kernel instantiation.
 3. Slice phase (the main path): LTN scoring to frame AUC at full sht_ltn
    width (3 layers, d_model 2048, d_inner 4096, 8 heads, d_k 256) with
    random weights from a torch.Generator seeded 0, over synthetic features
@@ -116,16 +122,36 @@
    device's idle share.  Prints a ``pack`` line.
 13. cli phase: ``python -m lstc_vad_tpu_torch`` subprocesses on the card
    over the pack: validate-data (exit 0; exit 1 naming the unknown key of a
-   broken train list), info (the card's name, both libraries built),
+   broken train list), info (the card's name, every library built),
    profile --mode eval --steps 3 (the attention kernel in the trace,
    n_layers x 3 launches), sweep over optim.lr_encoder (the preset's value
    and half of it, 1 epoch each, full width: two ranked runs),
    export-torch on the pack fit's best weights (the two files load
    strict=True into fresh modules) and evaluate with --ckpt and with
    --torch-ckpt on its files (the same AUC).  Prints a ``cli`` line.
-14. Prints each phase's wall time, one JSON line of kernels (launches summed
-   over every path above, and by path), then, as the last line,
-   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+14. bf16 phase, right after the cli phase, at full sht_ltn width from the
+   seed-0 weights and one batch (40 pairs) of the train phase's split:
+   dropout-free steps with f32 and with bf16 compute (3 each: the first's
+   loss, the second's s/step and peak memory, the third's device ms by op
+   group under torch.profiler), their losses within 0.05
+   (tests/test_train_e2e.py:168);
+   the bf16 step on the kernel and on an attn_impl="plain" copy (losses
+   within rel 1e-3); the bf16 step under remat (the kernel launched 2 x
+   n_layers: the recompute runs it again; 3 steps, profiled as above) and
+   with cast_sr (finite loss),
+   and the stochastic rounding unbiased over a 2048 x 2048 tensor on the
+   card; f32 steps at the preset's dropouts with remat against none (3
+   each, profiled as above; the first steps' losses equal and gradients
+   within 1e-6 relative: the RPE tables' gradients are summed with
+   atomics); one epoch from the pack with
+   data.transfer_dtype=bfloat16 against float32 (feature bytes halved,
+   losses within 0.05); and a bf16-compute Trainer's evaluation, which
+   must launch only the f32 kernel (its f32 twin) and give the f32
+   Trainer's AUC.  Prints a ``bf16`` line.
+15. Prints each phase's wall time, one JSON line of kernels (for each route,
+   launches summed over every path above, and by path), then, as the last
+   line, {"ok": true, "device": {"platform": "gpu", "kind": ...,
+   "count": ...}}.
 
 Any failed phase raises and the script exits non-zero without that line.
 Without a CUDA card it runs nothing and exits 2.
@@ -162,9 +188,23 @@ CLS_RTOL = 1e-4
 # same dropout masks, so the same losses up to the order of float sums
 PACK_LOSS_RTOL = 1e-6
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-# the kernel's f32-accurate rate: 3xTF32 is three TF32 tensor-core products
-# (495 TFLOP/s dense) for each f32 one
+# the f32 kernel's f32-accurate rate: 3xTF32 is three TF32 tensor-core
+# products (495 TFLOP/s dense) for each f32 one; the bf16 kernel's, the bf16
+# dense rate
 F32_FLOP_PER_S = 495e12 / 3
+BF16_FLOP_PER_S = 989e12
+# the bf16 kernel against plain_sdpa on the same bf16 inputs: both sum exact
+# products in f32 but in another order, so a probability near a bf16
+# rounding edge may round the other way in one of them, which moves the
+# output by up to 2^-7 (a bf16 ulp, relative, of the probabilities summed)
+# times max|v|, and the output's own rounding by an ulp (rtol).  The kernel
+# must also err no more than plain_sdpa against attention in float64 on the
+# same inputs (x BF16_F64_SLACK).
+BF16_RTOL, BF16_V_ULP, BF16_F64_SLACK = 1e-2, 2 ** -7, 1.05
+# bf16 phase: f32 vs bf16 compute, the dropout-free losses of one step from
+# the same weights and batch (tests/test_train_e2e.py:168-169), the bf16
+# step on the kernel vs the plain path, and an epoch on the bf16 wire vs f32
+BF16_LOSS_ATOL, BF16_KERNEL_LOSS_RTOL = 0.05, 1e-3
 H, D = 8, 256
 LENGTHS = (10, 17, 19, 28, 33, 49, 64, 65, 81, 128)  # model L, tile edges
 SEED = 0
@@ -196,15 +236,17 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(b: int, length: int, with_bias: bool):
-    """Least time for one attention call: q, k, v read once, out written
-    once (and the bias read once) over the memory rate, against the two
-    products' FLOPs over the kernel's f32-accurate tensor-core rate."""
-    n_bytes = 4 * (4 * b * H * length * D
-                   + (H * length * length if with_bias else 0))
+def bound(b: int, length: int, with_bias: bool, itemsize: int = 4):
+    """Least time for one attention call: q, k, v read once and out written
+    once at ``itemsize`` bytes an element (and the f32 bias read once) over
+    the memory rate, against the two products' FLOPs over the kernel's
+    tensor-core rate (3xTF32 for f32, bf16 dense for bf16)."""
+    n_bytes = (itemsize * 4 * b * H * length * D
+               + (4 * H * length * length if with_bias else 0))
     flops = 4 * b * H * length * length * D
+    rate = F32_FLOP_PER_S if itemsize == 4 else BF16_FLOP_PER_S
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -225,43 +267,67 @@ def ptxas_lines(log: str):
 
 
 def check_kernel(b: int, length: int, with_bias: bool, dev,
-                 strided: bool = False) -> dict:
-    """q, k, v [B, H, L, D], contiguous or (``strided``) views of
-    [B, L, H, D] buffers as the encoder passes them."""
+                 strided: bool = False, dtype: str = "float32") -> dict:
+    """q, k, v [B, H, L, D] of ``dtype``, contiguous or (``strided``) views
+    of [B, L, H, D] buffers as the encoder passes them; the bias f32.  The
+    f32 route is held to rtol RTOL / atol ATOL, the bf16 route as BF16_RTOL
+    etc. say."""
     import torch
     import torch.nn.functional as F
 
-    from lstc_vad_tpu_torch.ops.attention import plain_sdpa
-    from lstc_vad_tpu_torch.ops.cuda_attention import attention
+    from lstc_vad_tpu_torch.ops import cuda_attention
+    from lstc_vad_tpu_torch.ops.attention import plain_sdpa, scalar_in
 
+    attention = cuda_attention.attention
+    dt = getattr(torch, dtype)
     g = torch.Generator(device=dev).manual_seed(b * 1000 + length)
     shape = (b, length, H, D) if strided else (b, H, length, D)
-    q, k, v = (torch.randn(*shape, device=dev, generator=g)
+    q, k, v = (torch.randn(*shape, device=dev, generator=g).to(dt)
                for _ in range(3))
     if strided:
         q, k, v = (x.transpose(1, 2) for x in (q, k, v))
     bias = (torch.randn(H, length, length, device=dev, generator=g)
             if with_bias else None)
     temp = float(np.sqrt(D))
+    before = cuda_attention.launches_bf16
     out = attention(q, k, v, bias, temp)
     ref = plain_sdpa(q, k, v, temp, bias=bias)
     torch.cuda.synchronize()
-    if not torch.isfinite(out).all():
-        raise AssertionError(f"kernel gave non-finite values at B={b} "
-                             f"L={length} bias={with_bias}")
-    err = (out - ref).abs()
-    excess = (err - (ATOL + RTOL * ref.abs())).max().item()
-    max_err = err.max().item()
-    if excess > 0:
+    where = f"{dtype} B={b} L={length} bias={with_bias} strided={strided}"
+    if out.dtype != dt or not torch.isfinite(out).all():
+        raise AssertionError(f"kernel gave {out.dtype} or non-finite values "
+                             f"at {where}")
+    if cuda_attention.launches_bf16 - before != (dt == torch.bfloat16):
+        raise AssertionError(f"the {dtype} call took the wrong route")
+    err = (out.float() - ref.float()).abs()
+    row = {"B": b, "H": H, "L": length, "D": D, "dtype": dtype,
+           "bias": with_bias, "strided": strided,
+           "max_abs_err": err.max().item()}
+    if dt == torch.float32:
+        rtol, atol = RTOL, ATOL
+    else:
+        rtol, atol = BF16_RTOL, BF16_V_ULP * v.float().abs().max().item()
+        # both against attention in float64 on the same bf16 inputs
+        s = torch.matmul((q / scalar_in(temp, dt)).double(),
+                         k.double().transpose(-1, -2))
+        if bias is not None:
+            s = s + bias.double()
+        exact = torch.matmul(torch.softmax(s, dim=-1), v.double())
+        row["f64_err"] = (out.double() - exact).abs().max().item()
+        row["plain_f64_err"] = (ref.double() - exact).abs().max().item()
+        del s, exact
+        if row["f64_err"] > BF16_F64_SLACK * row["plain_f64_err"]:
+            raise AssertionError(
+                f"kernel farther from float64 than plain_sdpa at {where}: "
+                f"{row['f64_err']} vs {row['plain_f64_err']}")
+    if (err - (atol + rtol * ref.float().abs())).max().item() > 0:
         raise AssertionError(
-            f"kernel disagrees with plain_sdpa at B={b} L={length} "
-            f"bias={with_bias} strided={strided}: max abs err {max_err} "
-            f"beyond rtol {RTOL} / atol {ATOL}")
-    mask = bias[None] if bias is not None else None
-    bound_ms, bound_by = bound(b, length, with_bias)
+            f"kernel disagrees with plain_sdpa at {where}: max abs err "
+            f"{row['max_abs_err']} beyond rtol {rtol} / atol {atol}")
+    mask = bias[None].to(dt) if bias is not None else None
+    bound_ms, bound_by = bound(b, length, with_bias, q.element_size())
     return {
-        "B": b, "H": H, "L": length, "D": D, "bias": with_bias,
-        "strided": strided, "max_abs_err": max_err,
+        **row,
         "ms": cuda_ms(lambda: attention(q, k, v, bias, temp)),
         "plain_ms": cuda_ms(lambda: plain_sdpa(q, k, v, temp, bias=bias)),
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -490,6 +556,240 @@ def run_train(cfg, store, test_videos, card: str) -> dict:
                          e > 1e-4 for e in grad_err.values()),
                      "params": len(grad_err)},
         "card": card}
+
+
+OP_GROUPS = {"gemm": ("aten::mm", "aten::addmm"),
+             "attention": ("lstc_vad::attention", "aten::bmm",
+                           "aten::_softmax", "aten::_softmax_backward_data"),
+             "casts": ("aten::_to_copy", "aten::copy_"),
+             "optimizer": ("aten::_foreach_addcmul_", "aten::_foreach_sqrt",
+                           "aten::_foreach_add_", "aten::_foreach_addcdiv_")}
+
+
+def op_group_ms(prof, groups: dict = OP_GROUPS) -> dict:
+    """Self device time (ms) of the CPU-side operators of a profile, by
+    group of operator names, the rest under "other" (the kernels' own rows
+    repeat their operators' time)."""
+    from torch.autograd import DeviceType
+
+    out = {k: 0.0 for k in (*groups, "other")}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CPU:
+            continue
+        ms = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+        out[next((g for g, names in groups.items() if e.key in names),
+                 "other")] += ms
+    return out
+
+
+def sr_bias(n: int = 2048, draws: int = 16, device="cuda") -> dict:
+    """SR on the card over an n x n tensor whose values lie a fraction f in
+    [0, 0.5) of an ulp above a bf16 number: round-to-nearest always rounds
+    them down (a mean error of about -0.25 ulp), stochastic rounding is
+    unbiased.  The mean error in ulps over every element and draw must be
+    within 5 sigma of 0 (sigma <= 0.5 / sqrt(samples))."""
+    import torch
+
+    from lstc_vad_tpu_torch.ops.sr import sr_cast
+
+    g = torch.Generator(device=device).manual_seed(SEED)
+    base = torch.randn(n, n, device=device, generator=g).to(torch.bfloat16)
+    low = base.float()
+    ulp = (low.abs() * 2 ** -7).clamp_min(2 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(ulp)))  # a power of two
+    frac = torch.rand(n, n, device=device, generator=g) * 0.5
+    x = low + frac * ulp
+    sr = sum(((sr_cast(x).float() - x) / ulp).double().mean()
+             for _ in range(draws)) / draws
+    rtn = ((x.to(torch.bfloat16).float() - x) / ulp).double().mean()
+    limit = 5 * 0.5 / np.sqrt(n * n * draws)
+    out = {"n": n, "draws": draws, "sr_mean_err_ulp": sr.item(),
+           "rtn_mean_err_ulp": rtn.item(), "limit_ulp": limit}
+    if not abs(out["sr_mean_err_ulp"]) <= limit:
+        raise AssertionError(f"stochastic rounding is biased on the card: "
+                             f"{out}")
+    return out
+
+
+def run_bf16(cfg, store, test_videos, pack: str, card: str,
+             device="cuda", sr_n: int = 2048) -> dict:
+    """bf16 phase: the train knobs at full sht_ltn width from the seed-0
+    weights and one batch of the train phase's split; raises on any failed
+    check.  On the CPU (a rehearsal at a tiny width) nothing launches a
+    kernel and no device memory is counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lstc_vad_tpu_torch.config import replace
+    from lstc_vad_tpu_torch.data import BatchIterator, Prefetcher
+    from lstc_vad_tpu_torch.ops import cuda_attention
+    from lstc_vad_tpu_torch.train import create_train_state, make_train_step
+    from lstc_vad_tpu_torch.train.driver import Trainer
+    from lstc_vad_tpu_torch.utils.misc import resolve_dtype
+
+    dev = torch.device(device)
+    card_run = dev.type == "cuda"
+    # the launches a step of the kernel path makes on each route
+    n_layers = cfg.encoder.n_layers if card_run else 0
+
+    def sync():
+        if card_run:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak_gb():
+        return (torch.cuda.max_memory_allocated() / 2 ** 30 if card_run
+                else None)
+
+    cfg0 = no_dropout(cfg)
+    trainer = Trainer(cfg, store=store, test_videos=test_videos,
+                      device=dev)
+    batch = next(iter(BatchIterator(trainer.dataset, cfg.data.batch_size)))
+    f32_auc = trainer.evaluate("test")
+    del trainer
+
+    def knobs(c, **kw):
+        return replace(c, **{f"encoder.{k}": v for k, v in kw.items()})
+
+    def step(c, repeats: int = 1, profiled: bool = False, keep=False):
+        """``repeats`` steps of ``c`` from the seed-0 weights: the first's
+        loss, launches (both routes) and gradients (``keep``); the wall time
+        and peak memory of the last unprofiled one; and, when ``profiled``,
+        the last one under torch.profiler for the device ms by op group."""
+        st = create_train_state(c, device=dev, seed=SEED)
+        fn = make_train_step(c)
+        row = {}
+        activities = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if card_run else [])
+        timed = repeats - 1 - (profiled and repeats > 1)
+        for i in range(repeats):
+            sync()
+            cuda_attention.reset_launches()
+            ctx = (profile(activities=activities)
+                   if profiled and i == repeats - 1 and i else None)
+            t0 = time.perf_counter()
+            if ctx is not None:
+                with ctx as prof:
+                    _, m = fn(st, *batch)
+                    loss = float(m["loss"])
+            else:
+                _, m = fn(st, *batch)
+                loss = float(m["loss"])  # waits for the step
+            sec = time.perf_counter() - t0
+            if i == 0:
+                row = {"loss": loss, "launches": cuda_attention.launches,
+                       "launches_bf16": cuda_attention.launches_bf16}
+                if keep:
+                    row["grads"] = {n: p.grad.detach().clone() for n, p in
+                                    named_params(st).items()
+                                    if p.grad is not None}
+            if i == timed:
+                row["s"] = sec
+                row["peak_gb"] = peak_gb()
+            if ctx is not None:
+                row["device_ms"] = op_group_ms(prof)
+                row["device_ms"]["total"] = sum(row["device_ms"].values())
+        if not np.isfinite(row["loss"]):
+            raise AssertionError(f"non-finite loss {row['loss']}")
+        del st
+        if card_run:
+            torch.cuda.empty_cache()
+        return row
+
+    out = {}
+    # -- f32 against bf16 compute, dropout-free, same weights and batch -----
+    out["f32"] = step(cfg0, repeats=3, profiled=True)
+    out["bf16"] = step(knobs(cfg0, compute_dtype="bfloat16"), repeats=3,
+                       profiled=True)
+    out["loss_diff"] = abs(out["bf16"]["loss"] - out["f32"]["loss"])
+    if not out["loss_diff"] <= BF16_LOSS_ATOL:
+        raise AssertionError(f"bf16 compute moved the dropout-free loss by "
+                             f"{out['loss_diff']} (limit {BF16_LOSS_ATOL})")
+    for name, want in (("f32", (n_layers, 0)), ("bf16", (n_layers,
+                                                         n_layers))):
+        got = (out[name]["launches"], out[name]["launches_bf16"])
+        if got != want:
+            raise AssertionError(f"the {name} step launched {got} (all, "
+                                 f"bf16); expected {want}")
+    # -- the bf16 step on the plain path, under remat, with cast_sr ---------
+    out["bf16_plain"] = step(knobs(cfg0, compute_dtype="bfloat16",
+                                   attn_impl="plain"))
+    rel = abs(out["bf16"]["loss"] - out["bf16_plain"]["loss"]) / abs(
+        out["bf16_plain"]["loss"])
+    out["bf16_kernel_vs_plain_loss_rel"] = rel
+    if out["bf16_plain"]["launches"] or not rel <= BF16_KERNEL_LOSS_RTOL:
+        raise AssertionError(f"bf16 step: kernel vs plain loss rel {rel} "
+                             f"(limit {BF16_KERNEL_LOSS_RTOL}), plain "
+                             f"launches {out['bf16_plain']['launches']}")
+    out["bf16_remat"] = step(knobs(cfg0, compute_dtype="bfloat16",
+                                   remat=True), repeats=3, profiled=True)
+    out["cast_sr"] = step(knobs(cfg0, compute_dtype="bfloat16",
+                                cast_sr=True))
+    for name, mult in (("bf16_remat", 2), ("cast_sr", 1)):
+        got = (out[name]["launches"], out[name]["launches_bf16"])
+        if got != (mult * n_layers,) * 2:
+            raise AssertionError(f"the {name} step launched {got}; expected "
+                                 f"{mult} x {n_layers} on the bf16 route")
+    out["sr_bias"] = sr_bias(sr_n, device=dev)
+    # -- remat against none, f32 at the preset's dropouts -------------------
+    plain = step(cfg, repeats=3, profiled=True, keep=True)
+    remat = step(knobs(cfg, remat=True), repeats=3, profiled=True, keep=True)
+    grad_err = max(((remat["grads"][n] - g).norm() / g.norm()).item()
+                   for n, g in plain["grads"].items())
+    out["f32_remat"] = {
+        "loss": remat["loss"], "plain_loss": plain["loss"],
+        "peak_gb": remat["peak_gb"], "plain_peak_gb": plain["peak_gb"],
+        "s": remat["s"], "plain_s": plain["s"],
+        "device_ms": remat["device_ms"], "plain_device_ms": plain["device_ms"],
+        "max_grad_rel_err": grad_err,
+        "grads_bit_equal": sum(torch.equal(remat["grads"][n], g)
+                               for n, g in plain["grads"].items()),
+        "params": len(plain["grads"])}
+    del plain, remat
+    # the RPE tables' gradients are summed with atomics, in no fixed order
+    if out["f32_remat"]["loss"] != out["f32_remat"]["plain_loss"] \
+            or not grad_err <= 1e-6:
+        raise AssertionError(f"remat changed the step: {out['f32_remat']}")
+    # -- one epoch on the bf16 wire from the pack ---------------------------
+    wires = {}
+    for wire in ("float32", "bfloat16"):
+        c = replace(cfg, **{"data.pack_path": pack,
+                            "data.transfer_dtype": wire})
+        tr = Trainer(c, test_videos=[], device=dev)
+        dtype = resolve_dtype(wire)
+        one = next(iter(Prefetcher(BatchIterator(tr.dataset,
+                                                 c.data.batch_size),
+                                   dev, feature_dtype=dtype)))
+        m = tr.train_epoch()
+        wires[wire] = {"loss": m["loss"], "epoch_s": m["seconds"],
+                       "batch_bytes": sum(t.nbytes for t in one),
+                       "feature_bytes": one[0].nbytes + one[2].nbytes}
+        tr.store.close()
+        del tr, one
+    out["wire"] = wires
+    f, b = wires["float32"], wires["bfloat16"]
+    if 2 * b["feature_bytes"] != f["feature_bytes"] \
+            or not abs(b["loss"] - f["loss"]) <= BF16_LOSS_ATOL:
+        raise AssertionError(f"bf16 wire: {wires}")
+    # -- the bf16 Trainer evaluates through the f32 kernel ------------------
+    tr = Trainer(knobs(cfg, compute_dtype="bfloat16", remat=True),
+                 store=store, test_videos=test_videos, device=dev)
+    cuda_attention.reset_launches()
+    auc = tr.evaluate("test")
+    calls = tr.scorer.scorer.n_calls
+    out["eval"] = {"auc": auc, "f32_auc": f32_auc,
+                   "launches": cuda_attention.launches,
+                   "launches_bf16": cuda_attention.launches_bf16,
+                   "encoder_calls": calls}
+    del tr
+    if auc != f32_auc or cuda_attention.launches_bf16 \
+            or cuda_attention.launches != n_layers * calls:
+        raise AssertionError(f"the bf16 Trainer's evaluation: {out['eval']}")
+    if card_run:
+        torch.cuda.empty_cache()
+    return {**out, "preset": "sht_ltn", "batch_size": cfg.data.batch_size,
+            "card": card}
 
 
 def set_up_coteach(cfg_t, root: str):
@@ -1113,6 +1413,7 @@ def run_cli(cfg, pack: str, best: str, store, root: str, card: str,
         import torch
 
         lines += ["attention (attention.cu): built",
+                  "attention_bf16 (attention_bf16.cu): built",
                   torch.cuda.get_device_name(0)]
     if not all(ln in so for ln in lines):
         raise AssertionError(f"cli info: {so}")
@@ -1597,15 +1898,21 @@ def main() -> int:
     # -- kernel phase -----------------------------------------------------
     t0 = time.perf_counter()
     shapes = [(256, n) for n in LENGTHS] + [(2048, 49), (main_b, main_len)]
-    cases = [(b, n, with_bias, False) for b, n in shapes
+    cases = [(b, n, with_bias, False, "float32") for b, n in shapes
              for with_bias in (False, True)]
-    cases.append((main_b, main_len, True, True))  # as the encoder feeds it
-    rows = []
-    for b, length, with_bias, strided in cases:
-        row = check_kernel(b, length, with_bias, dev, strided)
-        rows.append(row)
+    # as the encoder feeds it
+    cases.append((main_b, main_len, True, True, "float32"))
+    # the bf16 route: every L and the main shape, both layouts
+    cases += [(b, n, with_bias, strided, "bfloat16")
+              for b, n in [(256, n) for n in LENGTHS] + [(main_b, main_len)]
+              for with_bias in (False, True) for strided in (False, True)]
+    rows = {"float32": [], "bfloat16": []}
+    for b, length, with_bias, strided, dtype in cases:
+        row = check_kernel(b, length, with_bias, dev, strided, dtype)
+        rows[dtype].append(row)
         print("kernel " + json.dumps(row))
-    main_row = rows[-1]
+    main_rows = {"float32": rows["float32"][-1],
+                 "bfloat16": rows["bfloat16"][-1]}  # strided, with bias
     walls["kernel"] = time.perf_counter() - t0
 
     # -- slice phase: the main path ---------------------------------------
@@ -1687,6 +1994,11 @@ def main() -> int:
         cli_row = run_cli(cfg_t, pack, best, store, root, card)
         print("cli " + json.dumps(cli_row))
         walls["cli"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        bf16 = run_bf16(cfg_t, store, test_videos, pack, card)
+        print("bf16 " + json.dumps(bf16))
+        walls["bf16"] = time.perf_counter() - t0
         os.remove(pack)
 
         t0 = time.perf_counter()
@@ -1729,29 +2041,42 @@ def main() -> int:
         walls["export"] = time.perf_counter() - t0
     print("walls " + json.dumps(walls))
 
-    max_err = max(r["max_abs_err"] for r in rows)  # over every shape checked
-    by_path = {"slice": launches, "fit_evals": train["fit_launches"],
-               "fit_steps": 0,
-               "dropout0_step": train["dropout0"]["launches"],
-               "coteach": coteach["launches"], "ucf": ucf["launches"],
-               "tencrop": tencrop["launches"], "serve": serve["launches"],
-               "serve_mp": serve_mp["launches"],
-               "export": export["launches"],
-               "pack_fit": pack_row["fit_pack"]["launches"],
-               "pack_fit_memory": pack_row["fit_memory"]["launches"],
-               "cli_profile": cli_row["profile"]["attention_launches"]}
-    print(json.dumps({"kernels": [{
-        "name": "attention", "route": "cuda",
-        "source": "lstc_vad_tpu_torch/csrc/attention.cu",
-        "replaces": "lstc_vad_tpu/ops/pallas_attention.py:50",
-        "launches": sum(by_path.values()), "launches_by_path": by_path,
-        "max_abs_err": max_err, "max_err": max_err,
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shape": {k: main_row[k]
-                  for k in ("B", "H", "L", "D", "bias", "strided")},
-        "card": card}]}))
+    # launches by path, read after each path ran; the f32 route's in the
+    # bf16 phase are its evaluation's (the f32 twin), the rest bf16's
+    by_path = {"float32": {
+        "slice": launches, "fit_evals": train["fit_launches"],
+        "fit_steps": 0, "dropout0_step": train["dropout0"]["launches"],
+        "coteach": coteach["launches"], "ucf": ucf["launches"],
+        "tencrop": tencrop["launches"], "serve": serve["launches"],
+        "serve_mp": serve_mp["launches"], "export": export["launches"],
+        "pack_fit": pack_row["fit_pack"]["launches"],
+        "pack_fit_memory": pack_row["fit_memory"]["launches"],
+        "cli_profile": cli_row["profile"]["attention_launches"],
+        "f32_step": bf16["f32"]["launches"],
+        "bf16_trainer_eval": bf16["eval"]["launches"]}, "bfloat16": {
+        "bf16_step": bf16["bf16"]["launches_bf16"],
+        "bf16_remat_step": bf16["bf16_remat"]["launches_bf16"],
+        "cast_sr_step": bf16["cast_sr"]["launches_bf16"]}}
+    sources = {"float32": ("attention", "attention.cu"),
+               "bfloat16": ("attention_bf16", "attention_bf16.cu")}
+    kernels = []
+    for dtype, (name, source) in sources.items():
+        row = main_rows[dtype]
+        max_err = max(r["max_abs_err"] for r in rows[dtype])  # every shape
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"lstc_vad_tpu_torch/csrc/{source}",
+            "replaces": "lstc_vad_tpu/ops/pallas_attention.py:50",
+            "launches": sum(by_path[dtype].values()),
+            "launches_by_path": by_path[dtype],
+            "max_abs_err": max_err, "max_err": max_err,
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "shape": {k: row[k] for k in ("B", "H", "L", "D", "dtype",
+                                          "bias", "strided")},
+            "card": card})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,15 +6,19 @@ numpy, and nothing of JAX or of ``lstc_vad_tpu``.
 
 What is ported: the evaluation forward, training, pseudo labels and
 co-teaching, for SHT, UBnormal and UCF (tenCrop stores included), serving,
-AOT export, the ``.lstcpack`` data layer and every CLI subcommand but
-``benchmark``:
+AOT export, the ``.lstcpack`` data layer, every CLI subcommand but
+``benchmark``, and the train-time knobs (bf16 compute, stochastic rounding,
+remat, bf16 wires for training and evaluation batches; f32 by default, and
+evaluation is f32 whatever they say):
 
 - ``models``      — encoder (STN/LTN) and Regressor/Classifier heads as
                     ``nn.Module``s, with the reference's state_dict key layout.
-- ``ops``         — attention: the plain PyTorch version and a CUDA kernel
-                    written for Hopper (``csrc/attention.cu``), built with
+- ``ops``         — attention: the plain PyTorch version and CUDA kernels
+                    written for Hopper, one per type (``csrc/attention.cu``
+                    f32, ``csrc/attention_bf16.cu`` bf16), built with
                     ``nvcc`` at first use; ``ops/_build.py`` also builds the
-                    host C++ pack reader (``csrc/packstore.cpp``) with g++.
+                    host C++ pack reader (``csrc/packstore.cpp``) with g++;
+                    the stochastic-rounding cast (``ops/sr.py``).
 - ``ckpt``        — JAX param trees and the reference's ``.ckpt`` files into
                     this package's state_dicts and back out to the
                     reference's files; checkpoints of the train state,
@@ -31,8 +35,9 @@ AOT export, the ``.lstcpack`` data layer and every CLI subcommand but
 - ``serving``, ``serving_mp`` — the streaming scorer and its JSONL server;
                     torch-free workers behind one batching backend.
 - ``export``      — ``torch.export`` artifacts of the eval scorer.
-- ``utils``, ``parallel`` — logging, profiling; the ``--mesh auto``
-                    factorization (the mesh itself is ROADMAP A18).
+- ``utils``, ``parallel`` — logging, profiling, seeding, the wire-type
+                    lookup; the ``--mesh auto`` factorization (the mesh
+                    itself is ROADMAP A18).
 - ``cli``         — ``python -m lstc_vad_tpu_torch train | gen-pseudo |
                     evaluate | coteach | export-aot | serve |
                     serve-backend | pack | validate-data | export-torch |

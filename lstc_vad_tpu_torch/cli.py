@@ -164,8 +164,9 @@ def _refuse_unported(args):
 def _eval_knobs(cfg: TrainConfig) -> TrainConfig:
     """Evaluation is f32 whatever the training knobs say, as in the JAX
     package's Trainer._make_eval_encoder: the reference eval is plain f32."""
-    return replace(cfg, **{"encoder.compute_dtype": "float32",
-                           "encoder.remat": False, "encoder.cast_sr": False})
+    from .models.encoder import eval_config
+
+    return dataclasses.replace(cfg, encoder=eval_config(cfg.encoder))
 
 
 def _check_ckpt_flags(args):

@@ -55,8 +55,8 @@ class EncoderConfig:
     weight_init: bool = False      # xavier-uniform over all >=2-D params
     layer_norm_eps: float = 1e-6
     attn_impl: str = "auto"        # "auto" | "plain"
-    # The three knobs below are not ported yet (ROADMAP A19): the encoder
-    # raises NotImplementedError on any value but the default.
+    # Train-time knobs (models/encoder.py); evaluation runs f32, no remat,
+    # no SR whatever they say.
     compute_dtype: str = "float32" # "float32" | "bfloat16"
     cast_sr: bool = False          # stochastic rounding of bf16 casts
     remat: bool = False            # recompute each layer in the backward

@@ -14,9 +14,11 @@ comes out as CPU tensors.
 Batch layout matches the reference collation: four stacked arrays
 (norm_feats [B, pn*pl, n_patch, d], norm_labs [B, pn*pl], abnorm_feats,
 abnorm_labs); iteration order is sequential over the per-epoch permutation
-(torch's default sampler), with drop_last=True.  Features travel as float32:
-a narrower wire type (the JAX package's ``data.transfer_dtype``) is ROADMAP
-A19, and the Trainer refuses it.
+(torch's default sampler), with drop_last=True.  With a ``feature_dtype``
+(``data.transfer_dtype="bfloat16"``) the two feature arrays are cast on the
+host, rounded to nearest even as numpy's ml_dtypes cast does in the JAX
+package, so the pinned buffers and the copy to the card carry half the
+bytes; the labels keep their type.
 """
 
 from __future__ import annotations
@@ -67,20 +69,26 @@ class Prefetcher:
 
     _SENTINEL = object()
 
-    def __init__(self, iterable, device: torch.device, depth: int = 2):
+    def __init__(self, iterable, device: torch.device, depth: int = 2,
+                 feature_dtype: torch.dtype = torch.float32):
+        """``feature_dtype``: the type batch elements 0 and 2 (the features)
+        travel and arrive in."""
         self.iterable = iterable
         self.device = torch.device(device)
         self.depth = depth
+        self.feature_dtype = feature_dtype
 
     def _put(self, batch):
         """Runs in the worker thread: (tensors, copy event or None)."""
         host = [torch.from_numpy(np.ascontiguousarray(a)) for a in batch]
+        dtypes = [self.feature_dtype if i in (0, 2) else h.dtype
+                  for i, h in enumerate(host)]
         if self.device.type != "cuda":
-            return tuple(host), None
+            return tuple(h.to(dt) for h, dt in zip(host, dtypes)), None
         pinned = []
-        for h in host:
-            p = torch.empty(h.shape, dtype=h.dtype, pin_memory=True)
-            p.copy_(h)
+        for h, dt in zip(host, dtypes):
+            p = torch.empty(h.shape, dtype=dt, pin_memory=True)
+            p.copy_(h)  # the cast, if any, in the same pass
             pinned.append(p)
         with torch.cuda.stream(self._stream):
             out = tuple(p.to(self.device, non_blocking=True) for p in pinned)

@@ -16,6 +16,14 @@ non-blocking copy, its scores come back the same way, and the ``resolve()``
 a dispatch returns is the only point that waits for the device, so the host
 fills batch N+1 while the card computes batch N.
 
+Wire type (``transfer_dtype``, ``data.eval_transfer_dtype`` in the Trainer
+and the CLI): with "bfloat16" the host buffers are bf16 torch tensors
+(numpy has no bf16), filled by a cast rounding to nearest even, so the copy
+to the device carries half the bytes; the device upcasts to f32 before the
+encoder, which computes in f32 (lstc_vad_tpu/evaluation/scoring.py:111-114,
+191-195).  Scores then move by the bf16 rounding of the features, so the
+default stays float32.
+
 Variable-length tails (paths without tail re-windowing) are scored at their
 true length in a separate call — shorter sequences change the relative-PE
 slice, so padding them would NOT be equivalent
@@ -32,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import replace
+from ..utils.misc import resolve_dtype
 from .frame_auc import (part_bounds, part_slices, ucf_bin_edges, ucf_bin_pool,
                         ucf_part_plan)
 
@@ -102,8 +111,19 @@ def _read_ahead(feats_list, depth: int = 1):
                 break
 
 
+def fill(buf, index, value):
+    """``buf[index] = value`` for a host buffer of ``host_buffer``: a numpy
+    array, or a torch tensor of a narrower wire type, which the copy rounds
+    to (nearest even)."""
+    if isinstance(buf, np.ndarray):
+        buf[index] = value
+    else:
+        buf[index] = torch.as_tensor(value)
+
+
 def _scorer_apply(encoder, head, kind: str, l2: bool, x: torch.Tensor
                   ) -> torch.Tensor:
+    # a narrower wire is upcast on the device: the compute stays f32
     x = x.float()
     if l2:
         # UCF eval-only quirk: F.normalize(p=2) on the raw features
@@ -120,22 +140,30 @@ class VideoScorer:
     """Encoder + head apply over [B, T, d] token batches on the encoder's
     device.  ``kind``: 'regressor' -> out[:, 0], 'classifier' -> probs[:, 1]
     (abnormal class).  ``l2_normalize``: divide each token by its L2 norm
-    first (the UCF final eval).  Puts both modules in eval mode.
-    ``n_calls`` counts the encoder calls (one per dispatched batch)."""
+    first (the UCF final eval).  ``transfer_dtype``: the wire type of the
+    token batches (see the module's docstring).  Puts both modules in eval
+    mode.  ``n_calls`` counts the encoder calls (one per dispatched
+    batch)."""
 
-    def __init__(self, encoder, head, kind: str, l2_normalize: bool = False):
+    def __init__(self, encoder, head, kind: str, l2_normalize: bool = False,
+                 transfer_dtype: str = "float32"):
         self.encoder = encoder.eval()
         self.head = head.eval()
         self.kind = kind
         self.l2_normalize = l2_normalize
+        self.wire = resolve_dtype(transfer_dtype)
         self.device = next(encoder.parameters()).device
         self.n_calls = 0
 
-    def host_buffer(self, shape) -> np.ndarray:
-        """A float32 host array to fill with tokens: pinned memory when the
-        scorer runs on the card, so its copy to the device needs no staging
-        copy and can run while the host goes on."""
-        if self.device.type == "cuda":
+    def host_buffer(self, shape):
+        """A host buffer of the wire type to fill with tokens (``fill``):
+        pinned memory when the scorer runs on the card, so its copy to the
+        device needs no staging copy and can run while the host goes on.  A
+        float32 numpy array, or a torch tensor of a narrower wire type."""
+        pinned = self.device.type == "cuda"
+        if self.wire != torch.float32:
+            return torch.empty(shape, dtype=self.wire, pin_memory=pinned)
+        if pinned:
             return torch.empty(shape, dtype=torch.float32,
                                pin_memory=True).numpy()
         return np.empty(shape, np.float32)
@@ -149,8 +177,12 @@ class VideoScorer:
         the card nothing here waits for the device: the copies and compute
         are enqueued and only resolve() synchronises."""
         self.n_calls += 1
-        host = torch.from_numpy(np.ascontiguousarray(tokens,
-                                                     dtype=np.float32))
+        if isinstance(tokens, torch.Tensor):  # a host_buffer of the wire
+            host = tokens
+        else:
+            host = torch.from_numpy(np.ascontiguousarray(tokens,
+                                                         dtype=np.float32))
+        host = host.to(self.wire)  # the cast on the host, before the copy
         if self.device.type == "cpu":
             with torch.inference_mode():
                 scores = self._forward(host).numpy()
@@ -198,6 +230,7 @@ class ArtifactVideoScorer(VideoScorer):
         self.loaded = loaded
         self.kind = loaded.meta["kind"]
         self.l2_normalize = loaded.meta.get("l2_normalize", False)
+        self.wire = torch.float32  # an exported program takes f32 tokens
         self.device = loaded.device
         self.n_calls = 0
 
@@ -237,8 +270,10 @@ class ClipScorer:
     switch, which scores clips with a Classifier's abnormal-class
     probability."""
 
-    def __init__(self, encoder, head, n_patch: int, kind: str = "regressor"):
-        self.scorer = VideoScorer(encoder, head, kind)
+    def __init__(self, encoder, head, n_patch: int, kind: str = "regressor",
+                 transfer_dtype: str = "float32"):
+        self.scorer = VideoScorer(encoder, head, kind,
+                                  transfer_dtype=transfer_dtype)
         self.n_patch = n_patch
 
     def score_video(self, feats: np.ndarray) -> np.ndarray:
@@ -263,7 +298,7 @@ class ClipScorer:
                     buf = self.scorer.host_buffer((CHUNK,) + t.shape[1:])
                     filled = 0
                 take = min(CHUNK - filled, len(t) - pos)
-                buf[filled:filled + take] = t[pos:pos + take]
+                fill(buf, slice(filled, filled + take), t[pos:pos + take])
                 filled += take
                 pos += take
                 if filled == CHUNK:
@@ -287,8 +322,9 @@ class PartScorer:
     one batch.  Returns (part_scores [n_parts], counts [n_parts])."""
 
     def __init__(self, encoder, head, part_len: int, n_patch: int,
-                 tail_rewindow: bool = True):
-        self.scorer = VideoScorer(encoder, head, "classifier")
+                 tail_rewindow: bool = True, transfer_dtype: str = "float32"):
+        self.scorer = VideoScorer(encoder, head, "classifier",
+                                  transfer_dtype=transfer_dtype)
         self.part_len = part_len
         self.n_patch = n_patch
         self.tail_rewindow = tail_rewindow
@@ -362,8 +398,8 @@ class PartScorer:
                 if buf is None:
                     buf = new_buffer(n_patch, d)
                 take = min(CHUNK - len(pending), n_aligned - pos)
-                buf[len(pending):len(pending) + take] = \
-                    full_view[pos:pos + take]
+                fill(buf, slice(len(pending), len(pending) + take),
+                     full_view[pos:pos + take])
                 pending.extend((v, i) for i in range(pos, pos + take))
                 pos += take
                 if len(pending) == CHUNK:
@@ -376,7 +412,7 @@ class PartScorer:
                     continue
                 if buf is None:
                     buf = new_buffer(n_patch, d)
-                buf[len(pending)] = feats[idx].reshape(-1, d)
+                fill(buf, len(pending), feats[idx].reshape(-1, d))
                 pending.append((v, i))
                 if len(pending) == CHUNK:
                     flush()
@@ -420,9 +456,11 @@ class UCFBinnedScorer:
 
     def __init__(self, encoder, head, part_len: int, n_patch: int,
                  max_clips: int = 32, l2_normalize: bool = True,
-                 tail_rewindow: bool = True, adaptive_bins: bool = False):
+                 tail_rewindow: bool = True, adaptive_bins: bool = False,
+                 transfer_dtype: str = "float32"):
         self.scorer = VideoScorer(encoder, head, "classifier",
-                                  l2_normalize=l2_normalize)
+                                  l2_normalize=l2_normalize,
+                                  transfer_dtype=transfer_dtype)
         self.part_len = part_len
         self.n_patch = n_patch
         self.max_clips = max_clips
@@ -465,7 +503,7 @@ class UCFBinnedScorer:
                 buf = self.scorer.host_buffer(
                     (len(entries),) + entries[0][2].shape)
                 for j, (_, _, tok) in enumerate(entries):
-                    buf[j] = tok
+                    fill(buf, j, tok)
                 targets = [(v, i) for v, i, _ in entries]
 
                 def sink(scores, targets=targets):
@@ -500,8 +538,10 @@ class UCFClipBinScorer:
 
     Returns (scores [n_non_empty], bin_ids [n_non_empty], r)."""
 
-    def __init__(self, encoder, head, n_patch: int, max_clips: int = 32):
-        self.scorer = VideoScorer(encoder, head, "regressor")
+    def __init__(self, encoder, head, n_patch: int, max_clips: int = 32,
+                 transfer_dtype: str = "float32"):
+        self.scorer = VideoScorer(encoder, head, "regressor",
+                                  transfer_dtype=transfer_dtype)
         self.n_patch = n_patch
         self.max_clips = max_clips
 
@@ -530,7 +570,7 @@ class UCFClipBinScorer:
                 if buf is None:
                     buf = self.scorer.host_buffer((CHUNK,) + feats.shape[1:])
                     filled = 0
-                buf[filled] = feats[r[i]:r[i + 1]].mean(axis=0)
+                fill(buf, filled, feats[r[i]:r[i + 1]].mean(axis=0))
                 filled += 1
                 if filled == CHUNK:
                     pipe.add(self.scorer.score_tokens_async(buf),
@@ -564,8 +604,10 @@ def ucf_final_eval_shapes(cfg):
 def ucf_final_eval_scorer(cfg, encoder, head) -> UCFBinnedScorer:
     """The UCF LTN final-eval scorer (Test/evaluation_UCF.py) for ``cfg``
     at ``ucf_final_eval_shapes``: fixed max_clips bins (from n_frames // 16
-    in the caller's items), L2-normalized features, tails re-windowed."""
+    in the caller's items), L2-normalized features, tails re-windowed, the
+    config's evaluation wire."""
     d = cfg.data
     return UCFBinnedScorer(encoder, head, d.part_len, d.n_patch,
                            max_clips=cfg.max_clips, l2_normalize=True,
-                           tail_rewindow=True)
+                           tail_rewindow=True,
+                           transfer_dtype=d.eval_transfer_dtype)

@@ -22,39 +22,125 @@ whatever the flags; the flags gate only their use.
 
 Dropout follows ``module.training``; evaluation calls ``.eval()``.  The
 attention inner loop dispatches through ops.attention.sdpa (the CUDA kernel
-on the card); the GEMMs are nn.Linear.  f32 only: bf16 compute, stochastic
-rounding and remat are not ported yet (ROADMAP A19) and raise.
+of the tensors' type on the card); the GEMMs are nn.Linear's weights on
+cuBLAS.
+
+The JAX package's train-time knobs, f32 and off by default:
+- ``compute_dtype="bfloat16"``: the casts are explicit, as flax's are (no
+  autocast, which would keep LayerNorm outputs and residuals in f32): x to
+  bf16 at the attention's entry, bf16 Linear outputs from weights cast to
+  bf16 on each call (the parameters stay f32), LayerNorm statistics in f32
+  with the output cast back to bf16, the residual adds in bf16.  The
+  encoder's output is bf16; the head upcasts it (models/heads.py).
+- ``cast_sr``: on train passes of a bf16 encoder, every Linear takes
+  stochastically rounded bf16 casts of its input, weight and bias
+  (ops/sr.py) and keeps its output bf16; the activations between the
+  Linears stay in their own type, the LayerNorms give f32.  Deterministic
+  passes run the plain bf16 path bit for bit.  With f32 compute it raises
+  ValueError, as the JAX package does.
+- ``remat``: each layer runs under ``torch.utils.checkpoint``
+  (``use_reentrant=False``) when a gradient is being taken, so its
+  activations are recomputed in the backward.  Every dropout mask and SR
+  noise draw comes from the default generators, which the checkpoint
+  restores for the recompute: loss and gradients equal the plain path's bit
+  for bit.  The diagnostic outputs (``return_probs``/``return_v``) bypass it.
+
+The state_dict is the same whatever the knobs, so every checkpoint loads
+into every configuration ``strict=True``.  Evaluation runs the f32 twin
+(``eval_twin``), which shares the weights.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import math
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import EncoderConfig
 from ..device import resolve_device
 from ..ops.attention import sdpa
+from ..ops.sr import sr_linear
 from . import initializers as init
 from . import rpe
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-def check_supported(c: EncoderConfig):
-    """Raise on the knobs this package does not implement yet, instead of
-    ignoring them."""
-    if c.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"encoder.compute_dtype={c.compute_dtype!r}: only float32 is "
-            "ported (bf16 compute is ROADMAP item A19)")
-    if c.cast_sr:
-        raise NotImplementedError("encoder.cast_sr is not ported yet "
-                                  "(ROADMAP item A19)")
-    if c.remat:
-        raise NotImplementedError("encoder.remat is not ported yet "
-                                  "(ROADMAP item A19)")
+
+def compute_dtype(c: EncoderConfig) -> torch.dtype:
+    if c.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"encoder.compute_dtype={c.compute_dtype!r}; "
+                         f"expected one of {sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[c.compute_dtype]
+
+
+def sr_active(c: EncoderConfig, training: bool) -> bool:
+    """cast_sr applies to train passes of a bf16-compute encoder only
+    (lstc_vad_tpu/models/encoder.py::_sr_active); deterministic passes keep
+    the plain cast path bit for bit."""
+    if not c.cast_sr or not training:
+        return False
+    if compute_dtype(c) != torch.bfloat16:
+        raise ValueError("encoder.cast_sr requires "
+                         f"compute_dtype='bfloat16', got {c.compute_dtype!r}")
+    return True
+
+
+def dense(lin: nn.Linear, x: torch.Tensor, dt: torch.dtype,
+          sr: bool) -> torch.Tensor:
+    """``lin`` applied as the JAX package's Dense of compute type ``dt``:
+    the module itself in f32; or x and the weight cast to bf16, the product
+    rounded to bf16, then the bf16 bias added (a second rounding, as flax
+    adds the bias after the dot); or, on the SR arm, stochastically rounded
+    casts."""
+    if sr:
+        return sr_linear(x, lin.weight, lin.bias)
+    if dt == torch.float32:
+        return lin(x)
+    y = F.linear(x.to(dt), lin.weight.to(dt))
+    return y if lin.bias is None else y + lin.bias.to(dt)
+
+
+def layer_norm(ln: nn.LayerNorm, x: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """Statistics in f32, the output in ``dtype`` (the identity casts in
+    f32)."""
+    return ln(x.float()).to(dtype)
+
+
+def eval_config(c: EncoderConfig) -> EncoderConfig:
+    """``c`` with f32 compute, remat off and cast_sr off: what evaluation
+    runs whatever the training knobs (lstc_vad_tpu/train/driver.py::
+    _make_eval_encoder)."""
+    return dataclasses.replace(c, compute_dtype="float32", remat=False,
+                               cast_sr=False)
+
+
+def _twin(module: nn.Module, cfg: EncoderConfig) -> nn.Module:
+    twin = copy.copy(module)  # shares the parameter and buffer dicts
+    twin._modules = type(module._modules)(
+        (name, None if child is None else _twin(child, cfg))
+        for name, child in module._modules.items())
+    if "cfg" in vars(module):
+        twin.cfg = cfg
+    return twin
+
+
+def eval_twin(encoder: "Encoder") -> "Encoder":
+    """The f32, no-remat, no-SR twin of ``encoder``, holding the very same
+    parameter and buffer tensors: a step's in-place update or a checkpoint
+    load shows in both, and the twin allocates nothing.  ``encoder`` itself
+    when it already has the evaluation knobs."""
+    cfg = eval_config(encoder.cfg)
+    if cfg == encoder.cfg:
+        return encoder
+    return _twin(encoder, cfg)
 
 
 class MultiHeadAttention(nn.Module):
@@ -129,13 +215,18 @@ class MultiHeadAttention(nn.Module):
         c = self.cfg
         b, length, _ = x.shape
         h, dk, dv = c.n_head, c.d_k, c.d_v
+        dt = compute_dtype(c)
+        sr = sr_active(c, self.training)
+        if not sr:
+            # the SR arm keeps the activations between its casts as they are
+            x = x.to(dt)
         residual = x
         # [B, H, L, D] views of the projections, no copies: the kernel reads
         # them strided and writes out as a view of a [B, L, H, D] buffer, so
         # the reshape below is a view too
-        q = self.w_qs(x).view(b, length, h, dk).transpose(1, 2)
-        k = self.w_ks(x).view(b, length, h, dk).transpose(1, 2)
-        v = self.w_vs(x).view(b, length, h, dv).transpose(1, 2)
+        q = dense(self.w_qs, x, dt, sr).view(b, length, h, dk).transpose(1, 2)
+        k = dense(self.w_ks, x, dt, sr).view(b, length, h, dk).transpose(1, 2)
+        v = dense(self.w_vs, x, dt, sr).view(b, length, h, dv).transpose(1, 2)
         dropout_p = c.attn_dropout if self.training else 0.0
         out = sdpa(q, k, v, temperature=math.sqrt(dk),
                    bias=self.relative_bias(length), mask=mask,
@@ -145,9 +236,10 @@ class MultiHeadAttention(nn.Module):
         if return_probs or return_v:
             out, probs = out
         out = out.transpose(1, 2).reshape(b, length, h * dv)
-        out = self.fc_dropout(self.fc(out)) + residual
+        out = self.fc_dropout(dense(self.fc, out, dt, sr)) + residual
         if c.mha_layernorm:
-            out = self.layer_norm(out)
+            out = layer_norm(self.layer_norm, out,
+                             torch.float32 if sr else dt)
         if return_v:
             return out, probs, v
         if return_probs:
@@ -172,11 +264,14 @@ class FeedForward(nn.Module):
         init.layer_norm_(self.layer_norm)
 
     def forward(self, x):
+        c = self.cfg
+        dt = compute_dtype(c)
+        sr = sr_active(c, self.training)
         residual = x
-        x = self.w_2(torch.relu(self.w_1(x)))
+        x = dense(self.w_2, torch.relu(dense(self.w_1, x, dt, sr)), dt, sr)
         x = self.dropout(x) + residual
-        if self.cfg.ffn_layernorm:
-            x = self.layer_norm(x)
+        if c.ffn_layernorm:
+            x = layer_norm(self.layer_norm, x, torch.float32 if sr else dt)
         return x
 
 
@@ -218,7 +313,7 @@ class Encoder(nn.Module):
     def __init__(self, cfg: EncoderConfig, device="cuda"):
         super().__init__()
         device = resolve_device(device)
-        check_supported(cfg)
+        compute_dtype(cfg)
         c = self.cfg = cfg
         self.layer_norm = nn.LayerNorm(c.d_model, eps=c.layer_norm_eps,
                                        device=device)
@@ -254,7 +349,8 @@ class Encoder(nn.Module):
         ``return_v``     -> (out, [attn maps], [per-layer V tensors])."""
         c = self.cfg
         if c.input_layernorm:
-            x = self.layer_norm(x)
+            # flax promotes a bf16 input with the f32 scale to f32
+            x = layer_norm(self.layer_norm, x, torch.float32)
         if self.cls_token is not None:
             cls = self.cls_token.expand(x.shape[0], 1, c.d_model)
         else:
@@ -263,7 +359,14 @@ class Encoder(nn.Module):
         if self.position_enc is not None:
             x = self.position_dropout(x + self.position_enc[:, :x.shape[1]])
         probs_all, v_all = [], []
+        # remat only where a gradient is taken: without one there is nothing
+        # to recompute, and the math is the same either way
+        remat = (c.remat and torch.is_grad_enabled()
+                 and not (return_probs or return_v))
         for layer in self.layer_stack:
+            if remat:
+                x = checkpoint(layer, x, mask, use_reentrant=False)
+                continue
             x = layer(x, mask, return_probs=return_probs, return_v=return_v)
             if return_v:
                 x, probs, v = x

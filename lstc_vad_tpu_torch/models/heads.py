@@ -59,8 +59,11 @@ class _Head(nn.Module):
         return self
 
     def forward(self, x):
+        """x: [..., d_model] in any float type; the head runs in f32 on
+        it, as flax promotes a bf16 encoder output with the head's f32
+        parameters (lstc_vad_tpu/models/heads.py, Dense with dtype=None)."""
         _check_width(x, self.d_model)
-        return getattr(self, self.kind)(x)
+        return getattr(self, self.kind)(x.float())
 
 
 class Regressor(_Head):

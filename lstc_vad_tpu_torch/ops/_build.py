@@ -2,7 +2,8 @@
 
 Each source under ``lstc_vad_tpu_torch/csrc`` is compiled into
 ``lstc_vad_tpu_torch/_build/lib<name>-<hash>.so`` and loaded with ctypes:
-the CUDA kernels (``.cu``) by ``nvcc`` for ``sm_90a``, the host C++ pack
+the CUDA kernels (``.cu``, one library per route of the attention
+operator) by ``nvcc`` for ``sm_90a``, the host C++ pack
 reader (``packstore.cpp``, data/packed.py) by ``g++``.  The hash covers the
 source and the compiler flags (for a CUDA library every ``.cu`` / ``.cuh``
 file of ``csrc``), so an edited source builds anew and a stale library is
@@ -27,7 +28,8 @@ from typing import Dict, Iterable, Optional
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = {"attention": "attention.cu", "packstore": "packstore.cpp"}
+SOURCES = {"attention": "attention.cu", "attention_bf16": "attention_bf16.cu",
+           "packstore": "packstore.cpp"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")

@@ -28,16 +28,19 @@ def pseudo_scorer(cfg, encoder, head):
     P(abnormal), not out[:, 0]).  LTN: a PartScorer without tail re-window,
     or on UCF a UCFBinnedScorer without L2 norm or re-window whose bin count
     is the config's max_clips (the reference generator hardcodes 32, the
-    config default, Train/pseudo_labels_generator_temporal.py:70)."""
+    config default, Train/pseudo_labels_generator_temporal.py:70).  Every
+    one takes the config's evaluation wire, ``data.eval_transfer_dtype``."""
     d = cfg.data
+    td = d.eval_transfer_dtype
     if cfg.model.startswith("stn"):
-        return ClipScorer(encoder, head, d.n_patch, kind=cfg.head.kind)
+        return ClipScorer(encoder, head, d.n_patch, kind=cfg.head.kind,
+                          transfer_dtype=td)
     if d.dataset == "UCF":
         return UCFBinnedScorer(encoder, head, d.part_len, d.n_patch,
                                max_clips=cfg.max_clips, l2_normalize=False,
-                               tail_rewindow=False)
+                               tail_rewindow=False, transfer_dtype=td)
     return PartScorer(encoder, head, d.part_len, d.n_patch,
-                      tail_rewindow=False)
+                      tail_rewindow=False, transfer_dtype=td)
 
 
 def _threshold(scores: np.ndarray, threshold: float) -> np.ndarray:

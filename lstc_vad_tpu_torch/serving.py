@@ -40,7 +40,11 @@ def _fetch(scores) -> np.ndarray:
 
 class StreamingScorer:
     """``encoder`` / ``head``: the modules to score with, on their device.
-    ``transfer_dtype`` other than float32 is ROADMAP A19 and raises.
+    ``transfer_dtype="bfloat16"`` keeps the stream buffers and the flush
+    batches in bf16 (torch tensors: numpy has no bf16), halving both the
+    buffers' RAM and the bytes of each flush's copy to the card; the device
+    upcasts and computes in f32, as the offline scorers do
+    (lstc_vad_tpu/serving.py:31-60).
 
     ``n_calls`` counts the device calls made and ``n_padded`` the padding
     rows they carried."""
@@ -49,17 +53,19 @@ class StreamingScorer:
                  d_model: int, max_streams: int = 64,
                  head_kind: str = "classifier",
                  transfer_dtype: str = "float32"):
-        if transfer_dtype != "float32":
-            raise NotImplementedError(
-                f"transfer_dtype={transfer_dtype!r}: stream buffers and "
-                "flush batches are float32; a narrower wire type is ROADMAP "
-                "A19")
+        import torch
+
         from .evaluation.scoring import VideoScorer
 
         self._init(part_len, n_patch, d_model, max_streams, head_kind)
-        self.scorer = VideoScorer(encoder, head, head_kind)
+        self.scorer = VideoScorer(encoder, head, head_kind,
+                                  transfer_dtype=transfer_dtype)
         self._apply = self.scorer.score_tokens_async
         self._new_batch = self.scorer.host_buffer
+        wire = self.scorer.wire
+        if wire != torch.float32:
+            self._to_wire = lambda clip: torch.tensor(clip, dtype=wire)
+            self._cat = torch.cat
         # every flush call of the live scorer has one shape, max_streams
         # rows (the JAX package's one compiled program; here it keeps the
         # call shape fixed); applies that pad for themselves (artifacts,
@@ -74,6 +80,9 @@ class StreamingScorer:
         self.head_kind = head_kind
         self.scorer = None
         self._new_batch = lambda shape: np.empty(shape, np.float32)
+        # a clip as the stream buffers hold it, and their concatenation
+        self._to_wire = lambda clip: clip
+        self._cat = np.concatenate
         self.pad_batches = False
         self._buffers: Dict[str, List[np.ndarray]] = {}
         self.n_calls = 0
@@ -139,7 +148,7 @@ class StreamingScorer:
         if clip.shape != (self.n_patch, self.d_model):
             raise ValueError(f"clip shape {clip.shape} != "
                              f"({self.n_patch}, {self.d_model})")
-        self._buffers.setdefault(stream_id, []).append(clip)
+        self._buffers.setdefault(stream_id, []).append(self._to_wire(clip))
 
     def _dispatch(self, parts: List[np.ndarray], tok_len: int):
         """One device call over ``parts`` (each [tok_len, d]), padded to
@@ -179,11 +188,11 @@ class StreamingScorer:
             popped[sid] = buf
             n_full = len(buf) - len(buf) % self.part_len
             for start in range(0, n_full, self.part_len):
-                full_parts.append((sid, np.concatenate(
-                    buf[start:start + self.part_len], axis=0)))
+                full_parts.append((sid, self._cat(
+                    buf[start:start + self.part_len])))
             if len(buf) > n_full:
                 tails.setdefault(len(buf) - n_full, []).append(
-                    (sid, np.concatenate(buf[n_full:], axis=0)))
+                    (sid, self._cat(buf[n_full:])))
 
         def score_groups(entries, tok_len):
             # dispatch every group before fetching any: group N+1's copy
@@ -237,7 +246,7 @@ class StreamingScorer:
                         # many stream ids must not accumulate empty buffers
                         del self._buffers[sid]
                     taken[sid] = part
-                    parts.append(np.concatenate(part, axis=0))
+                    parts.append(self._cat(part))
                 dispatched.append((group, self._dispatch(
                     parts, self.part_len * self.n_patch)))
             results: List[Tuple[str, float]] = []

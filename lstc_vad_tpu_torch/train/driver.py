@@ -12,8 +12,16 @@ SHT, UBnormal and UCF are ported, tenCrop stores included (a crop drawn per
 training pair or video; evaluation at the fixed ``data.eval_crop``).
 Features come from ``data.pack_path`` (a ``.lstcpack``, data/packed.py:
 batches through its native gather, no h5py) when it is set, else from the
-HDF5 file ``data.h5_path``.  Not yet: a narrower wire type for batches
-(ROADMAP A19) and a device mesh (A18); each raises ``NotImplementedError``.
+HDF5 file ``data.h5_path``.  Not yet: a device mesh (ROADMAP A18).
+
+Wire types: ``data.transfer_dtype="bfloat16"`` casts each batch's features on
+the host before the copy (the Prefetcher), so they enter the encoder as
+bf16; ``data.eval_transfer_dtype`` is the evaluation's own knob, handed to
+every scorer, so the training one never moves evaluation scores.
+
+Evaluation is f32 whatever the training knobs: the scorers run the encoder's
+f32, no-remat, no-SR twin (models/encoder.py::eval_twin), which shares the
+train weights, and ``scoring_modules`` builds the same configuration.
 
 Modes: a step puts the modules in train mode (train/steps.py) and
 ``evaluate`` puts them in eval mode, so in-training evaluation runs without
@@ -42,6 +50,8 @@ from ..evaluation.drivers import (evaluate_ltn, evaluate_stn,
 from ..evaluation.scoring import (ClipScorer, PartScorer, UCFBinnedScorer,
                                   UCFClipBinScorer)
 from ..models import build
+from ..models.encoder import eval_config, eval_twin
+from ..utils.misc import resolve_dtype
 from .state import create_train_state
 from .steps import make_train_step
 
@@ -54,14 +64,6 @@ class TrainResult:
     best_train_epoch: int = 0
     history: List[Dict] = dataclasses.field(default_factory=list)
     steps: int = 0
-
-
-def _check_supported(cfg: TrainConfig):
-    d = cfg.data
-    if d.transfer_dtype != "float32":
-        raise NotImplementedError(
-            f"data.transfer_dtype={d.transfer_dtype!r}: batches travel as "
-            "float32; a narrower wire type is ROADMAP A19")
 
 
 class Trainer:
@@ -80,7 +82,6 @@ class Trainer:
 
     def __init__(self, cfg: TrainConfig, logger=None, store=None,
                  test_videos=None, device="cuda", eval_only: bool = False):
-        _check_supported(cfg)
         self.cfg = cfg
         self.logger = logger or logging.getLogger("lstc_vad_tpu_torch")
         self.device = resolve_device(device)
@@ -140,33 +141,43 @@ class Trainer:
 
         self.state = create_train_state(cfg, self.device)
         self.step_fn = None if eval_only else make_train_step(cfg)
+        # the f32 twin of the train encoder, sharing its weights
+        self.eval_encoder = eval_twin(self.state.encoder)
         self.scorer = self._build_scorer()
 
     def _build_scorer(self):
         cfg, d = self.cfg, self.cfg.data
-        enc, head = self.state.encoder, self.state.head
+        # the eval wire is its own knob, never data.transfer_dtype
+        enc, head = self.eval_encoder, self.state.head
+        td = d.eval_transfer_dtype
         if cfg.model.startswith("stn"):
             if d.dataset == "UCF":
-                return UCFClipBinScorer(enc, head, d.n_patch, cfg.max_clips)
+                return UCFClipBinScorer(enc, head, d.n_patch, cfg.max_clips,
+                                        transfer_dtype=td)
             # kind: an n_layers==1 classifier head scores P(abnormal)
-            return ClipScorer(enc, head, d.n_patch, kind=cfg.head.kind)
+            return ClipScorer(enc, head, d.n_patch, kind=cfg.head.kind,
+                              transfer_dtype=td)
         if d.dataset == "UCF":
             # in-training eval flags (Train/temporal_transformer_UCF.py)
             return UCFBinnedScorer(enc, head, d.part_len, d.n_patch,
                                    max_clips=cfg.max_clips,
                                    l2_normalize=False, tail_rewindow=False,
-                                   adaptive_bins=True)
+                                   adaptive_bins=True, transfer_dtype=td)
         return PartScorer(enc, head, d.part_len, d.n_patch,
-                          tail_rewindow=cfg.eval_tail_rewindow)
+                          tail_rewindow=cfg.eval_tail_rewindow,
+                          transfer_dtype=td)
 
     def scoring_modules(self):
         """A separate encoder and head on the Trainer's device, in eval
-        mode, holding ``best_params`` (the live weights when no evaluation
-        has improved): what co-teaching scores pseudo labels with, while
-        the Trainer's own modules stay as they are."""
+        mode, with the evaluation knobs (f32, no remat, no SR) and holding
+        ``best_params`` (the live weights when no evaluation has improved):
+        what co-teaching scores pseudo labels with, while the Trainer's own
+        modules stay as they are."""
         cfg = self.cfg
         params = self.best_params or self.params()
-        encoder, head = build(cfg, device=self.device, seed=cfg.seed)
+        encoder, head = build(dataclasses.replace(
+            cfg, encoder=eval_config(cfg.encoder)), device=self.device,
+            seed=cfg.seed)
         encoder.load_state_dict(params["encoder"], strict=True)
         head.load_state_dict(params["head"], strict=True)
         return encoder, head
@@ -231,6 +242,7 @@ class Trainer:
         "train"), in eval mode."""
         cfg, d = self.cfg, self.cfg.data
         self.state.encoder.eval()
+        self.eval_encoder.eval()
         self.state.head.eval()
         items = self._test_items() if split == "test" else self._train_items()
         t0 = time.perf_counter()
@@ -253,7 +265,7 @@ class Trainer:
         d = self.cfg.data
         batches = Prefetcher(
             BatchIterator(self.dataset, d.batch_size, drop_last=True),
-            self.device)
+            self.device, feature_dtype=resolve_dtype(d.transfer_dtype))
         snippets_per_batch = 2 * d.batch_size * d.part_num * d.part_len
         metrics = {}
         log_every = self.cfg.log_every_step

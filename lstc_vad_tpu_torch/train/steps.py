@@ -18,10 +18,15 @@ they were.  The masks are not JAX's; parity of the dropout stream is
 distributional, as it is between the JAX package and the reference
 (lstc_vad_tpu/train/steps.py:35-36).
 
+Every stochastic rounding noise draw of a ``cast_sr`` step (ops/sr.py) comes
+from the same default generators, which is also what lets
+``encoder.remat`` recompute a layer with the same masks and noise.
+
 Attention in a step dispatches as everywhere (ops/attention.py::sdpa): with
 attention dropout on (0.1-0.2 at the presets) it takes the plain path, as
-the JAX package does; with it off, the Hopper kernel runs the forward and
-autograd through ``plain_sdpa`` the backward (ops/cuda_attention.py).
+the JAX package does; with it off, the Hopper kernel of the compute type
+runs the forward (twice per layer under remat: the recompute runs it again)
+and autograd through ``plain_sdpa`` the backward (ops/cuda_attention.py).
 """
 
 from __future__ import annotations
@@ -67,7 +72,12 @@ def step_rng(seed: int, step: int, device: torch.device):
 
 
 def _as_tensor(x, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+    """A batch element on ``device`` in f32, but for a bf16 tensor: the
+    features of a bf16 wire enter the encoder as bf16, as the JAX step
+    takes them."""
+    bf16 = isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16
+    return torch.as_tensor(x, dtype=torch.bfloat16 if bf16 else
+                           torch.float32, device=device)
 
 
 def _scores(state: TrainState, x: torch.Tensor) -> torch.Tensor:

@@ -45,17 +45,10 @@ OP_GROUPS = {
 
 def op_groups(prof) -> dict:
     """Self device time (ms) of the CPU-side operators, by group."""
-    from torch.autograd import DeviceType
+    import chip_smoke
 
-    out = {k: 0.0 for k in (*OP_GROUPS, "other_ops")}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CPU:
-            continue  # kernel rows repeat their operators' time
-        ms = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0)) / 1e3
-        group = next((g for g, names in OP_GROUPS.items()
-                      if e.key in names), "other_ops")
-        out[group] += ms
+    out = chip_smoke.op_group_ms(prof, OP_GROUPS)
+    out["other_ops"] = out.pop("other")
     return out
 
 

@@ -145,6 +145,43 @@ def test_gen_pseudo_stn_gives_the_librarys_dict(sht, tmp_path):
     assert_labels_match(load_pseudo_labels(out), want, raw, tau, atol=1e-6)
 
 
+TRAIN_KNOBS = {"encoder.compute_dtype": "bfloat16", "encoder.remat": "true",
+               "encoder.cast_sr": "true", "data.transfer_dtype": "bfloat16"}
+
+
+def test_train_with_the_train_knobs_then_export_aot(sht, tmp_path):
+    """``train`` with bf16 compute, remat, cast_sr and a bf16 wire runs in a
+    subprocess; ``export-aot`` of that config writes f32 eval programs
+    (lstc_vad_tpu/cli/main.py:903-905), which score as the f32 config's
+    artifact from the same weights, bit for bit, and evaluate gives the f32
+    config's AUC."""
+    best = str(tmp_path / "best.pt")
+    res = run("train", "--preset", "sht_ltn", *_data_flags(sht),
+              *flags(SHT_SMALL), *flags(TRAIN_KNOBS), "--batch-size", "2",
+              "--epochs", "2", "--set", "inter_epoch=1", "--save-dir",
+              str(tmp_path / "ckpt"), "--save-best", best)
+    assert "test AUC" in res.stderr
+    from lstc_vad_tpu_torch.export import load_scorer
+
+    arts = {}
+    for name, extra in (("knobs", flags(TRAIN_KNOBS)), ("f32", [])):
+        arts[name] = str(tmp_path / name)
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert cli.main(["export-aot", "--preset", "sht_ltn", "--ckpt",
+                             best, "--out", arts[name], "--device", "cpu",
+                             *flags(SHT_SMALL), *extra]) == 0
+    tokens = np.random.default_rng(0).standard_normal(
+        (5, 48, 32)).astype(np.float32)
+    got, want = (load_scorer(arts[n], device="cpu").score(tokens)
+                 for n in ("knobs", "f32"))
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    aucs = [auc_of(run("evaluate", "--preset", "sht_ltn", *_data_flags(sht),
+                       *flags(SHT_SMALL), *extra, "--ckpt", best).stdout)
+            for extra in (flags(TRAIN_KNOBS), [])]
+    assert aucs[0] == aucs[1]
+
+
 def test_coteach_writes_both_artifacts(sht, tmp_path):
     work = str(tmp_path / "work")
     run("coteach", "--stn-preset", "sht_stn", "--ltn-preset", "sht_ltn",

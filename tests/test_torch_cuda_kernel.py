@@ -372,3 +372,165 @@ def test_fit_from_a_pack_equals_fit_from_memory(card, tmp_path):
                             tm.state.encoder.state_dict().values()):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7, msg=name)
 
+
+
+# ----------------------------------------------------------- the bf16 route
+#
+# bf16 q, k, v go to csrc/attention_bf16.cu.  Its products are exact and
+# summed in f32, as plain_sdpa's, but in another order; so a probability
+# that lies near a bf16 rounding edge may round the other way in one of the
+# two, which moves the output by up to 2^-7 (a bf16 ulp, relative, of the
+# probabilities summed) times the largest |v|, and the output's own
+# rounding by a bf16 ulp, under rtol 1e-2.  What holds the kernel's
+# accuracy is the second check: against attention in float64 on the same
+# bf16 inputs it errs no more than plain_sdpa does (x1.05).
+BF16_RTOL = 1e-2
+
+
+def _bf16_inputs(card, seed, b, h, length, d, with_bias, strided=False):
+    q, k, v, bias = _inputs(card, seed, b, h, length, d, with_bias, strided)
+    return q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16), \
+        bias
+
+
+def _exact(q, k, v, bias, temp):
+    from lstc_vad_tpu_torch.ops.attention import scalar_in
+
+    s = torch.matmul((q / scalar_in(temp, q.dtype)).double(),
+                     k.double().transpose(-1, -2))
+    if bias is not None:
+        s = s + bias.double()
+    return torch.matmul(torch.softmax(s, dim=-1), v.double())
+
+
+def _check_bf16(q, k, v, bias, temp):
+    before = (cuda_attention.launches, cuda_attention.launches_bf16)
+    out = cuda_attention.attention(q, k, v, bias, temp)
+    torch.cuda.synchronize()
+    assert (cuda_attention.launches, cuda_attention.launches_bf16) == (
+        before[0] + 1, before[1] + 1)
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    ref = plain_sdpa(q, k, v, temp, bias=bias)
+    atol = 2 ** -7 * v.float().abs().max().item()
+    err = (out.float() - ref.float()).abs()
+    assert (err <= BF16_RTOL * ref.float().abs() + atol).all(), \
+        err.max().item()
+    exact = _exact(q, k, v, bias, temp)
+    kernel_err = (out.double() - exact).abs().max().item()
+    plain_err = (ref.double() - exact).abs().max().item()
+    assert kernel_err <= 1.05 * plain_err + 1e-6, (kernel_err, plain_err)
+    return out
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("length", LENGTHS)
+def test_bf16_kernel_matches_plain(card, length, with_bias):
+    q, k, v, bias = _bf16_inputs(card, length, 5, 8, length, 256, with_bias)
+    _check_bf16(q, k, v, bias, 16.0)
+
+
+@pytest.mark.parametrize("length", [17, 49, 128])
+@pytest.mark.parametrize("d", [32, 96, 256])
+def test_bf16_kernel_narrow_heads(card, d, length):
+    """d=96: √96 is not a bf16 number; the kernel scales by the temperature
+    rounded to bf16, as plain_sdpa (and JAX's weak scalar) does."""
+    q, k, v, bias = _bf16_inputs(card, d + length, 3, 2, length, d, True)
+    _check_bf16(q, k, v, bias, float(np.sqrt(d)))
+
+
+@pytest.mark.parametrize("length,pairs", [(10, 9), (28, 3)])
+def test_bf16_kernel_partial_last_block(card, length, pairs):
+    assert pairs % cuda_attention.tile_bf16(length).pairs
+    q, k, v, bias = _bf16_inputs(card, pairs, pairs, 1, length, 64, True)
+    _check_bf16(q, k, v, bias, 8.0)
+
+
+@pytest.mark.parametrize("length", [10, 17, 49, 81, 128])
+def test_bf16_kernel_reads_and_writes_the_encoders_layout(card, length):
+    q, k, v, bias = _bf16_inputs(card, 100 + length, 6, 8, length, 256, True,
+                                 strided=True)
+    assert not q.is_contiguous()
+    out = _check_bf16(q, k, v, bias, 16.0)
+    assert out.transpose(1, 2).is_contiguous()
+
+
+def test_bf16_kernel_rejects_misaligned_strides(card):
+    before = cuda_attention.launches
+    q = torch.zeros(2, 2, 9, 36, device=card,
+                    dtype=torch.bfloat16)[..., :32]  # rows 72 bytes apart
+    with pytest.raises(ValueError, match="multiples of 8"):
+        cuda_attention.attention(q, q, q, None, 4.0)
+    ok = torch.zeros(2, 2, 9, 32, device=card, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="float32 bias"):
+        cuda_attention.attention(ok, ok, ok, torch.zeros(
+            2, 9, 9, device=card, dtype=torch.bfloat16), 4.0)
+    assert cuda_attention.launches == before
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("length", [17, 49, 81])
+def test_bf16_kernel_backward_gives_the_plain_gradients(card, length,
+                                                        with_bias):
+    """The registered autograd of the bf16 route is autograd through
+    plain_sdpa on the saved bf16 inputs: the same gradients, bit for bit."""
+    b, h, d = 6, 8, 256
+
+    def leaves():
+        gen = torch.Generator(device=card).manual_seed(400 + length)
+        bufs = [torch.randn(b, length, h, d, device=card, generator=gen)
+                .to(torch.bfloat16).requires_grad_() for _ in range(3)]
+        bias = (torch.randn(h, length, length, device=card, generator=gen)
+                .requires_grad_() if with_bias else None)
+        return bufs, bias
+
+    w = torch.randn(b, h, length, d, device=card).to(torch.bfloat16)
+    bufs, bias = leaves()
+    out = cuda_attention.attention(*(x.transpose(1, 2) for x in bufs), bias,
+                                   16.0)
+    (out * w).float().sum().backward()
+    ref_bufs, ref_bias = leaves()
+    ref = plain_sdpa(*(x.transpose(1, 2) for x in ref_bufs), 16.0,
+                     bias=ref_bias)
+    (ref * w).float().sum().backward()
+    pairs = list(zip(bufs, ref_bufs))
+    if with_bias:
+        pairs.append((bias, ref_bias))
+    for x, r in pairs:
+        assert x.grad is not None and x.grad.dtype == x.dtype
+        assert torch.equal(x.grad, r.grad)
+
+
+def test_remat_step_launches_the_kernel_twice_per_layer(card):
+    """With attention dropout 0 and remat, each layer's forward runs twice
+    in a step (the recompute), the kernel of the compute type each time;
+    the loss and gradients equal the step without remat bit for bit."""
+    from lstc_vad_tpu_torch.config import replace
+    from lstc_vad_tpu_torch.train import create_train_state, make_train_step
+
+    cfg, _ = _small_ltn(card, **{"encoder.attn_dropout": 0.0,
+                                 "encoder.compute_dtype": "bfloat16",
+                                 "data.part_num": 2, "data.batch_size": 2})
+    d = cfg.data
+    rng = np.random.default_rng(0)
+    shape = (2, d.part_num * d.part_len, d.n_patch, cfg.encoder.d_model)
+    batch = (rng.standard_normal(shape).astype(np.float32),
+             np.zeros((2, d.part_num * d.part_len), np.float32),
+             rng.standard_normal(shape).astype(np.float32),
+             rng.random((2, d.part_num * d.part_len)).astype(np.float32))
+    runs = []
+    for remat in (False, True):
+        c = replace(cfg, **{"encoder.remat": remat})
+        state = create_train_state(c, device=card, seed=0)
+        cuda_attention.reset_launches()
+        metrics = make_train_step(c).grads(state, *batch)
+        torch.cuda.synchronize()
+        assert cuda_attention.launches == cuda_attention.launches_bf16 == \
+            cfg.encoder.n_layers * (2 if remat else 1)
+        runs.append((metrics["loss"], [p.grad for p in
+                                       state.encoder.parameters()]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert (a is None) == (b is None)
+        if a is not None:
+            # the RPE table's gradient is summed with atomics
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)

@@ -54,7 +54,10 @@ def test_package_imports_no_jax_and_no_jax_package():
                 "lstc_vad_tpu_torch.ckpt.torch_export",
                 "lstc_vad_tpu_torch.parallel.mesh",
                 "lstc_vad_tpu_torch.utils.logging",
-                "lstc_vad_tpu_torch.utils.profiling"):
+                "lstc_vad_tpu_torch.utils.profiling",
+                "lstc_vad_tpu_torch.utils.seeding",
+                "lstc_vad_tpu_torch.utils.misc",
+                "lstc_vad_tpu_torch.ops.sr"):
         assert mod in report["imported"]
     bad = [m for m in report["loaded"]
            if m.split(".")[0] in FORBIDDEN_ROOTS

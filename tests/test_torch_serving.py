@@ -14,6 +14,7 @@ import json
 import jax
 import numpy as np
 import pytest
+import torch
 
 from lstc_vad_tpu.config import EncoderConfig
 from lstc_vad_tpu.models import Encoder as JaxEncoder
@@ -59,13 +60,15 @@ def model():
     return (jenc, jhead, params, *port_modules(jcfg, params))
 
 
-def pair(model, max_streams=4):
+def pair(model, max_streams=4, transfer_dtype="float32"):
     """(port scorer, JAX scorer) on the same weights."""
     jenc, jhead, params, enc, head = model
     return (StreamingScorer(enc, head, PART_LEN, N_PATCH, D,
-                            max_streams=max_streams),
+                            max_streams=max_streams,
+                            transfer_dtype=transfer_dtype),
             JaxStreamingScorer(jenc, jhead, params, PART_LEN, N_PATCH, D,
-                               max_streams=max_streams))
+                               max_streams=max_streams,
+                               transfer_dtype=transfer_dtype))
 
 
 def push_both(scorers, sid, clips):
@@ -148,15 +151,19 @@ def test_end_streams_batched_calls(model, rng):
 
 
 def test_live_apply_is_the_offline_eval_apply(model):
-    """The served scorer runs the VideoScorer the offline scorers use; a
-    narrower wire type is ROADMAP A19."""
+    """The served scorer runs the VideoScorer the offline scorers use; with
+    a bf16 wire its stream buffers and flush batches are bf16."""
     enc, head = model[3:]
     ours = StreamingScorer(enc, head, PART_LEN, N_PATCH, D)
     assert isinstance(ours.scorer, VideoScorer)
     assert ours._apply == ours.scorer.score_tokens_async
-    with pytest.raises(NotImplementedError, match="A19"):
-        StreamingScorer(enc, head, PART_LEN, N_PATCH, D,
-                        transfer_dtype="bfloat16")
+    narrow = StreamingScorer(enc, head, PART_LEN, N_PATCH, D,
+                             transfer_dtype="bfloat16")
+    assert narrow.scorer.wire == torch.bfloat16
+    narrow.push("s", np.ones((N_PATCH, D), np.float32))
+    assert narrow._buffers["s"][0].dtype == torch.bfloat16
+    batch = narrow._new_batch((2, PART_LEN * N_PATCH, D))
+    assert isinstance(batch, torch.Tensor) and batch.dtype == torch.bfloat16
 
 
 def test_push_shape_validation_leaks_no_buffer(model):
@@ -217,6 +224,28 @@ def test_serve_jsonl_replies_equal_jax_line_for_line(model, rng, flush_every):
     assert_replies_match(got, want)
     assert sum("error" in r for r in got) == 4
     assert got[-1] == {"ended_streams": 1}  # EOF ended the late stream
+
+
+@pytest.mark.parametrize("flush_every", [0, 4])
+def test_bf16_wire_replies_equal_jax_line_for_line(model, rng, flush_every):
+    """``transfer_dtype="bfloat16"``: both packages round every clip to bf16
+    on the host (nearest even) and compute in f32 on the device, so the
+    replies agree as on the f32 wire, and differ from the f32 wire's."""
+    clips = rng.standard_normal((11, N_PATCH, D)).astype(np.float32)
+    script = [{"op": "push", "stream": f"s{i % 3}",
+               "feat": base64.b64encode(clips[i].astype("<f4").tobytes())
+               .decode()} for i in range(11)]
+    script += [{"op": "flush"}, {"op": "end", "stream": "s2"},
+               {"op": "end_all"}]
+    ours, ref = pair(model, transfer_dtype="bfloat16")
+    got, got_counts = _replies(serve_jsonl, ours, script, flush_every)
+    want, want_counts = _replies(jax_serve_jsonl, ref, script, flush_every)
+    assert got_counts == want_counts
+    assert_replies_match(got, want)
+    f32, _ = _replies(serve_jsonl, pair(model)[0], script, flush_every)
+    scores = [r.get("score", r.get("scores")) for r in got]
+    f32_scores = [r.get("score", r.get("scores")) for r in f32]
+    assert scores != f32_scores
 
 
 def test_flush_restores_buffers_on_device_error(model, rng):

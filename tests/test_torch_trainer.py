@@ -112,6 +112,21 @@ def test_trainer_from_a_pack_matches_jax(sht, sht_pack, tmp_path):
     assert isinstance(trainer.store, PackedStore) and trainer.store.native
 
 
+def test_trainer_with_a_bf16_train_wire_matches_jax(sht, tmp_path):
+    """``data.transfer_dtype="bfloat16"``: both Prefetchers round the batch
+    features to bf16 on the host and both steps take them into the encoder
+    as bf16, so the two Trainers agree at the f32 bars above."""
+    trainer = _fit_against_jax(jax_preset(
+        "sht_ltn", **_overrides(sht, tmp_path),
+        **{"data.transfer_dtype": "bfloat16"}))
+    seen = []
+    hook = trainer.state.encoder.register_forward_hook(
+        lambda m, i, o: seen.append(i[0].dtype))
+    trainer.train_epoch()
+    hook.remove()
+    assert seen == [torch.bfloat16]
+
+
 def test_evaluate_runs_in_eval_mode_and_steps_in_train_mode(sht, tmp_path):
     cfg = preset("sht_ltn", **_overrides(sht, tmp_path))
     trainer = Trainer(cfg, device="cpu")
@@ -150,7 +165,6 @@ def test_metrics_jsonl_best_params_and_iteration_log(sht, tmp_path, caplog):
      "UCF has no train-split"),
     ({"data.pack_path": "missing.lstcpack"}, PackFormatError,
      "unreadable pack"),
-    ({"data.transfer_dtype": "bfloat16"}, NotImplementedError, "A19"),
     ({"data.test_mask_dir": ""}, ValueError, "test_mask_dir"),
     ({"data.train_txt": ""}, ValueError, "train_txt"),
 ])
