@@ -20,8 +20,14 @@
    than plain_sdpa x1.05, against attention in float64.  Times the kernel,
    the plain version and, as a yardstick the package never calls,
    F.scaled_dot_product_attention (its mask in q's type), with the bound at
-   the route's bytes per element and tensor-core rate.  Prints ptxas's
-   registers and spills of each kernel instantiation.
+   the route's bytes per element and tensor-core rate.  Then the streaming
+   kernel (csrc/attention_stream.cu) of each route, strided with bias: at
+   the main path's shape forced through its own launcher (where the tiled
+   kernels run), at L = 129, 144, 192, 257 (B=256), 512 and 1024 (B=64),
+   H=8, D=256, and at config B's heads (4 x d_k 512, d_v 384, the main
+   path's part count), with the same checks and times; each call must
+   launch the kernel ``route`` names.  Prints ptxas's registers and spills
+   of each kernel instantiation.
 3. Slice phase (the main path): LTN scoring to frame AUC at full sht_ltn
    width (3 layers, d_model 2048, d_inner 4096, 8 heads, d_k 256) with
    random weights from a torch.Generator seeded 0, over synthetic features
@@ -148,10 +154,23 @@
    losses within 0.05); and a bf16-compute Trainer's evaluation, which
    must launch only the f32 kernel (its f32 twin) and give the f32
    Trainer's AUC.  Prints a ``bf16`` line.
-15. Prints each phase's wall time, one JSON line of kernels (for each route,
-   launches summed over every path above, and by path), then, as the last
-   line, {"ok": true, "device": {"platform": "gpu", "kind": ...,
-   "count": ...}}.
+15. long phase, right after the bf16 phase, from seed-0 weights at full
+   width, f32: config A, sht_ltn at part_len 8 (window_depth 8, L = 129),
+   scores the test split to frame AUC with the tail re-window (every part
+   on the streaming kernel) and without it (the tails' L = 33-113 on the
+   tiled f32 kernel, the rest streaming), each against a plain copy (frame
+   scores within 5e-5, AUC within 1e-4); then one dropout-free step of a
+   batch of 16 pairs of the train split in f32 and in bf16 compute, each on
+   the kernel and on the plain path (losses within rel 1e-5 and 1e-3; the
+   kernel steps launch only the streaming kernel of their type, n_layers
+   times; the f32 step's peak under 40 GB).  Config B, sht_ltn with 4
+   heads of d_k 512 and d_v 384, scores the test split against a plain
+   copy; its attention launches only the streaming kernel.  Prints a
+   ``long`` line.
+16. Prints each phase's wall time, one JSON line of kernels (for each of the
+   four kernels, launches summed over every path above, and by path), then,
+   as the last line, {"ok": true, "device": {"platform": "gpu", "kind":
+   ..., "count": ...}}.
 
 Any failed phase raises and the script exits non-zero without that line.
 Without a CUDA card it runs nothing and exits 2.
@@ -207,6 +226,7 @@ BF16_RTOL, BF16_V_ULP, BF16_F64_SLACK = 1e-2, 2 ** -7, 1.05
 BF16_LOSS_ATOL, BF16_KERNEL_LOSS_RTOL = 0.05, 1e-3
 H, D = 8, 256
 LENGTHS = (10, 17, 19, 28, 33, 49, 64, 65, 81, 128)  # model L, tile edges
+STREAM_LENGTHS = (129, 144, 192, 257, 512, 1024)  # past the tiled kernels
 SEED = 0
 
 
@@ -236,14 +256,16 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(b: int, length: int, with_bias: bool, itemsize: int = 4):
-    """Least time for one attention call: q, k, v read once and out written
-    once at ``itemsize`` bytes an element (and the f32 bias read once) over
-    the memory rate, against the two products' FLOPs over the kernel's
+def bound(b: int, length: int, with_bias: bool, itemsize: int = 4,
+          d_k: int = D, d_v: int = D, h: int = H):
+    """Least time for one attention call: q, k ([B, H, L, d_k]) and v read
+    once and out ([B, H, L, d_v]) written once at ``itemsize`` bytes an
+    element (and the f32 bias read once) over the memory rate, against the
+    two products' 2·L²·(d_k + d_v) FLOP a pair over the kernel's
     tensor-core rate (3xTF32 for f32, bf16 dense for bf16)."""
-    n_bytes = (itemsize * 4 * b * H * length * D
-               + (4 * H * length * length if with_bias else 0))
-    flops = 4 * b * H * length * length * D
+    n_bytes = (itemsize * b * h * length * (2 * d_k + 2 * d_v)
+               + (4 * h * length * length if with_bias else 0))
+    flops = 2 * b * h * length * length * (d_k + d_v)
     rate = F32_FLOP_PER_S if itemsize == 4 else BF16_FLOP_PER_S
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / rate * 1e3
@@ -252,13 +274,16 @@ def bound(b: int, length: int, with_bias: bool, itemsize: int = 4):
 
 def ptxas_lines(log: str):
     """One line per kernel instantiation from nvcc's -Xptxas=-v output: its
-    key-tile count (the template argument), registers, stack and spills."""
+    key-tile count (the tiled kernels' template argument) or route (the
+    streaming kernel's), registers, stack and spills."""
     name, spill = "?", ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             t = re.search(r"ILi(\d+)E", m.group(1))
-            name = f"NT={t.group(1)}" if t else m.group(1)
+            route = re.search(r"INS_\d+(F32|BF16)E", m.group(1))
+            name = (f"NT={t.group(1)}" if t else route.group(1) if route
+                    else m.group(1))
         elif "bytes stack frame" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line:
@@ -267,42 +292,59 @@ def ptxas_lines(log: str):
 
 
 def check_kernel(b: int, length: int, with_bias: bool, dev,
-                 strided: bool = False, dtype: str = "float32") -> dict:
-    """q, k, v [B, H, L, D] of ``dtype``, contiguous or (``strided``) views
-    of [B, L, H, D] buffers as the encoder passes them; the bias f32.  The
-    f32 route is held to rtol RTOL / atol ATOL, the bf16 route as BF16_RTOL
-    etc. say."""
+                 strided: bool = False, dtype: str = "float32",
+                 d_k: int = D, d_v: int = D, h: int = H,
+                 stream: bool = False) -> dict:
+    """q, k [B, H, L, d_k] and v [B, H, L, d_v] of ``dtype``, contiguous or
+    (``strided``) views of [B, L, H, d] buffers as the encoder passes them;
+    the bias f32.  Through the operator, or (``stream``) through the
+    streaming kernel's own launcher whatever ``route`` says; the call must
+    launch the kernel it names.  The f32 route is held to rtol RTOL / atol
+    ATOL, the bf16 route as BF16_RTOL etc. say."""
     import torch
     import torch.nn.functional as F
 
     from lstc_vad_tpu_torch.ops import cuda_attention
     from lstc_vad_tpu_torch.ops.attention import plain_sdpa, scalar_in
 
-    attention = cuda_attention.attention
+    attention = (cuda_attention.stream_attention if stream
+                 else cuda_attention.attention)
     dt = getattr(torch, dtype)
     g = torch.Generator(device=dev).manual_seed(b * 1000 + length)
-    shape = (b, length, H, D) if strided else (b, H, length, D)
-    q, k, v = (torch.randn(*shape, device=dev, generator=g).to(dt)
-               for _ in range(3))
-    if strided:
-        q, k, v = (x.transpose(1, 2) for x in (q, k, v))
-    bias = (torch.randn(H, length, length, device=dev, generator=g)
+
+    def make(d):
+        if strided:
+            return torch.randn(b, length, h, d, device=dev,
+                               generator=g).to(dt).transpose(1, 2)
+        return torch.randn(b, h, length, d, device=dev, generator=g).to(dt)
+
+    q, k, v = make(d_k), make(d_k), make(d_v)
+    bias = (torch.randn(h, length, length, device=dev, generator=g)
             if with_bias else None)
-    temp = float(np.sqrt(D))
-    before = cuda_attention.launches_bf16
+    temp = float(np.sqrt(d_k))
+    route = cuda_attention.route(
+        dt, length, d_k, d_v,
+        all(cuda_attention._aligned(t) for t in (q, k, v)))
+    if stream and not route.endswith("_stream"):
+        route += "_stream"
+    before = dict(cuda_attention.by_route)
     out = attention(q, k, v, bias, temp)
     ref = plain_sdpa(q, k, v, temp, bias=bias)
     torch.cuda.synchronize()
-    where = f"{dtype} B={b} L={length} bias={with_bias} strided={strided}"
-    if out.dtype != dt or not torch.isfinite(out).all():
-        raise AssertionError(f"kernel gave {out.dtype} or non-finite values "
-                             f"at {where}")
-    if cuda_attention.launches_bf16 - before != (dt == torch.bfloat16):
-        raise AssertionError(f"the {dtype} call took the wrong route")
+    where = (f"{dtype} B={b} H={h} L={length} d_k={d_k} d_v={d_v} "
+             f"bias={with_bias} strided={strided} stream={stream}")
+    if out.dtype != dt or out.shape != ref.shape \
+            or not torch.isfinite(out).all():
+        raise AssertionError(f"kernel gave {out.dtype} {tuple(out.shape)} or "
+                             f"non-finite values at {where}")
+    launched = {r: n - before[r] for r, n in cuda_attention.by_route.items()}
+    if launched != {r: int(r == route) for r in launched}:
+        raise AssertionError(f"the call at {where} launched {launched}; "
+                             f"expected one launch of {route}")
     err = (out.float() - ref.float()).abs()
-    row = {"B": b, "H": H, "L": length, "D": D, "dtype": dtype,
-           "bias": with_bias, "strided": strided,
-           "max_abs_err": err.max().item()}
+    row = {"B": b, "H": h, "L": length, "d_k": d_k, "d_v": d_v,
+           "dtype": dtype, "bias": with_bias, "strided": strided,
+           "route": route, "max_abs_err": err.max().item()}
     if dt == torch.float32:
         rtol, atol = RTOL, ATOL
     else:
@@ -324,8 +366,10 @@ def check_kernel(b: int, length: int, with_bias: bool, dev,
         raise AssertionError(
             f"kernel disagrees with plain_sdpa at {where}: max abs err "
             f"{row['max_abs_err']} beyond rtol {rtol} / atol {atol}")
+    del ref, err
     mask = bias[None].to(dt) if bias is not None else None
-    bound_ms, bound_by = bound(b, length, with_bias, q.element_size())
+    bound_ms, bound_by = bound(b, length, with_bias, q.element_size(), d_k,
+                               d_v, h)
     return {
         **row,
         "ms": cuda_ms(lambda: attention(q, k, v, bias, temp)),
@@ -790,6 +834,155 @@ def run_bf16(cfg, store, test_videos, pack: str, card: str,
         torch.cuda.empty_cache()
     return {**out, "preset": "sht_ltn", "batch_size": cfg.data.batch_size,
             "card": card}
+
+
+# the long phase: sht_ltn at part_len 8 (config A, L = 129) and with free
+# head widths (config B: 4 heads, d_k 512, d_v 384)
+LONG_PARTS = {"data.part_len": 8, "encoder.window_depth": 8}
+FREE_HEADS = {"encoder.n_head": 4, "encoder.d_k": 512, "encoder.d_v": 384}
+# pairs of A's train steps: L = 129 is 2.6x the tokens of L = 49, whose
+# 40-pair f32 step peaked at 18.35 GB; the f32 step must stay under 40 GB
+LONG_BATCH, LONG_PEAK_GB = 16, 40.0
+
+
+def run_long(cfg_t, store, items, card: str, device="cuda",
+             batch_pairs: int = LONG_BATCH) -> dict:
+    """long phase: configs A and B at the width of ``cfg_t`` (full sht_ltn
+    on the card) from seed-0 weights; raises on any failed check.  A scores
+    the test split to frame AUC with the preset's tail re-window (every part
+    129 tokens: the streaming kernel) and without it (tails of 2-7 clips:
+    L = 33-113, the tiled kernel), each against a plain copy, then takes one
+    dropout-free train step in f32 and one in bf16 compute on the kernel and
+    on the plain path, from one batch of ``batch_pairs`` pairs of the train
+    split.  B scores the test split against a plain copy; its attention
+    runs only on the streaming kernel (d_v != d_k).  On the CPU (a
+    rehearsal at a tiny width) nothing launches."""
+    import torch
+
+    from lstc_vad_tpu_torch.config import replace
+    from lstc_vad_tpu_torch.data import BatchIterator
+    from lstc_vad_tpu_torch.evaluation.drivers import evaluate_ltn
+    from lstc_vad_tpu_torch.evaluation.scoring import PartScorer
+    from lstc_vad_tpu_torch.models import build
+    from lstc_vad_tpu_torch.ops import cuda_attention
+    from lstc_vad_tpu_torch.train import create_train_state, make_train_step
+    from lstc_vad_tpu_torch.train.driver import Trainer
+
+    dev = torch.device(device)
+    card_run = dev.type == "cuda"
+
+    def launched():
+        return {"launches": cuda_attention.launches,
+                "launches_stream": cuda_attention.launches_stream,
+                "launches_bf16": cuda_attention.launches_bf16,
+                "by_route": dict(cuda_attention.by_route)}
+
+    def evaluate(cfg, tail_rewindow):
+        """frame AUC through the kernel and through a plain copy: the
+        kernel run's launches, scores within SCORE_ATOL, AUCs within
+        AUC_TOL."""
+        enc, head = build(cfg, device=dev, seed=SEED)
+        row = {}
+        runs = []
+        for name, (e, h) in (("kernel", (enc, head)),
+                             ("plain", plain_copy(cfg, enc, head))):
+            scorer = PartScorer(e, h, cfg.data.part_len, cfg.data.n_patch,
+                                tail_rewindow=tail_rewindow)
+            cuda_attention.reset_launches()
+            t0 = time.perf_counter()
+            auc, scores = evaluate_ltn(scorer, items, cfg.data.segment_len,
+                                       return_scores=True)
+            row[f"{name}_wall_s"] = time.perf_counter() - t0
+            runs.append((auc, scores, launched(), scorer.scorer.n_calls))
+        (auc, scores, counts, calls), (plain_auc, plain_scores, plain_counts,
+                                       _) = runs
+        check_launches(counts["launches"], cfg.encoder.n_layers, calls,
+                       device, "long eval")
+        if plain_counts["launches"]:
+            raise AssertionError("the plain long eval launched a kernel")
+        err = max(float(np.abs(a - b).max())
+                  for a, b in zip(scores, plain_scores))
+        if err > SCORE_ATOL or abs(auc - plain_auc) > AUC_TOL \
+                or not np.isfinite(auc):
+            raise AssertionError(
+                f"long eval: kernel vs plain frame scores {err} (limit "
+                f"{SCORE_ATOL}), AUC {auc} vs {plain_auc} (limit {AUC_TOL})")
+        return {**row, "tail_rewindow": tail_rewindow, "auc": auc,
+                "plain_auc": plain_auc, "max_abs_score_err": err,
+                "encoder_calls": calls, **counts}
+
+    def need(cond, what, row):
+        if card_run and not cond:
+            raise AssertionError(f"long phase, {what}: {row}")
+
+    out = {}
+    # -- config A: part_len 8, L = 129 --------------------------------------
+    cfg_a = replace(cfg_t, **LONG_PARTS)
+    length = cfg_a.data.part_len * cfg_a.data.n_patch + 1
+    out["A"] = {"L": length,
+                "eval": evaluate(cfg_a, cfg_a.eval_tail_rewindow),
+                "eval_no_rewindow": evaluate(cfg_a, False)}
+    row = out["A"]["eval"]
+    need(row["by_route"]["f32_stream"] == row["launches"] > 0,
+         "every part of the re-windowed eval on the streaming kernel", row)
+    row = out["A"]["eval_no_rewindow"]
+    need(row["by_route"]["f32_stream"] > 0 and row["by_route"]["f32"] > 0
+         and row["by_route"]["f32_stream"] + row["by_route"]["f32"]
+         == row["launches"], "the unre-windowed eval on both f32 kernels",
+         row)
+
+    cfg0 = replace(no_dropout(cfg_a), **{"data.batch_size": batch_pairs})
+    trainer = Trainer(cfg0, store=store, test_videos=[], device=dev)
+    batch = next(iter(BatchIterator(trainer.dataset, batch_pairs)))
+    del trainer
+    steps = {}
+    for compute in ("float32", "bfloat16"):
+        for impl in ("auto", "plain"):
+            c = replace(cfg0, **{"encoder.compute_dtype": compute,
+                                 "encoder.attn_impl": impl})
+            st = create_train_state(c, device=dev, seed=SEED)
+            if card_run:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            cuda_attention.reset_launches()
+            t0 = time.perf_counter()
+            _, m = make_train_step(c)(st, *batch)
+            loss = float(m["loss"])  # waits for the step
+            steps[f"{compute}_{impl}"] = {
+                "loss": loss, "s": time.perf_counter() - t0,
+                "peak_gb": (torch.cuda.max_memory_allocated() / 2 ** 30
+                            if card_run else None), **launched()}
+            del st
+            if card_run:
+                torch.cuda.empty_cache()
+    out["A"]["steps"] = steps
+    out["A"]["batch_pairs"] = batch_pairs
+    n_layers = cfg_a.encoder.n_layers
+    for compute, rtol, route in (("float32", LOSS_RTOL, "f32_stream"),
+                                 ("bfloat16", BF16_KERNEL_LOSS_RTOL,
+                                  "bf16_stream")):
+        k, p = steps[f"{compute}_auto"], steps[f"{compute}_plain"]
+        rel = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+        out["A"][f"{compute}_kernel_vs_plain_loss_rel"] = rel
+        if not np.isfinite(k["loss"]) or not rel <= rtol or p["launches"]:
+            raise AssertionError(f"long {compute} step: kernel vs plain loss "
+                                 f"rel {rel} (limit {rtol}); {k}, {p}")
+        need(k["by_route"][route] == k["launches"] == n_layers,
+             f"the {compute} step on {route}", k)
+    need(not card_run or steps["float32_auto"]["peak_gb"] < LONG_PEAK_GB,
+         f"the f32 step's peak under {LONG_PEAK_GB} GB",
+         steps["float32_auto"])
+
+    # -- config B: 4 heads, d_k 512, d_v 384 ----------------------------------
+    cfg_b = replace(cfg_t, **FREE_HEADS)
+    out["B"] = {"heads": {k.split(".")[1]: v for k, v in FREE_HEADS.items()},
+                "eval": evaluate(cfg_b, cfg_b.eval_tail_rewindow)}
+    row = out["B"]["eval"]
+    need(row["by_route"]["f32_stream"] == row["launches"] > 0,
+         "config B's eval on the streaming kernel alone", row)
+    if card_run:
+        torch.cuda.empty_cache()
+    return {**out, "preset": "sht_ltn", "card": card}
 
 
 def set_up_coteach(cfg_t, root: str):
@@ -1913,6 +2106,20 @@ def main() -> int:
         print("kernel " + json.dumps(row))
     main_rows = {"float32": rows["float32"][-1],
                  "bfloat16": rows["bfloat16"][-1]}  # strided, with bias
+    # the streaming kernel, both routes, strided with bias: the main shape
+    # forced through its launcher, every L of the grid past 128, and config
+    # B's heads (4 x d_k 512, d_v 384) at the main path's part count
+    stream_cases = [dict(b=main_b, length=main_len, stream=True)] + [
+        dict(b=256 if n <= 257 else 64, length=n) for n in STREAM_LENGTHS
+    ] + [dict(b=main_b, length=main_len, h=4, d_k=512, d_v=384)]
+    for dtype in ("float32", "bfloat16"):
+        rows[f"{dtype}_stream"] = []
+        for case in stream_cases:
+            row = check_kernel(with_bias=True, dev=dev, strided=True,
+                               dtype=dtype, **case)
+            rows[f"{dtype}_stream"].append(row)
+            print("kernel " + json.dumps(row))
+        main_rows[f"{dtype}_stream"] = rows[f"{dtype}_stream"][0]
     walls["kernel"] = time.perf_counter() - t0
 
     # -- slice phase: the main path ---------------------------------------
@@ -1921,6 +2128,9 @@ def main() -> int:
     auc, scores, wall, n_calls = run_eval(encoder, head, cfg, items)
     launches = cuda_attention.launches
     expect = cfg.encoder.n_layers * n_calls
+    if cuda_attention.by_route["f32"] != launches:
+        raise AssertionError(f"the main path left the tiled f32 kernel: "
+                             f"{cuda_attention.by_route}")
     if launches != expect or launches == 0:
         raise AssertionError(f"attention kernel launched {launches} times on "
                              f"the main path; expected {expect} "
@@ -2002,6 +2212,11 @@ def main() -> int:
         os.remove(pack)
 
         t0 = time.perf_counter()
+        long = run_long(cfg_t, store, items, card)
+        print("long " + json.dumps(long))
+        walls["long"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
         coteach = run_coteach(*set_up_coteach(cfg_t, root), store,
                               test_videos, root, card)
         print("coteach " + json.dumps(coteach))
@@ -2043,6 +2258,7 @@ def main() -> int:
 
     # launches by path, read after each path ran; the f32 route's in the
     # bf16 phase are its evaluation's (the f32 twin), the rest bf16's
+    long_a, long_b = long["A"], long["B"]
     by_path = {"float32": {
         "slice": launches, "fit_evals": train["fit_launches"],
         "fit_steps": 0, "dropout0_step": train["dropout0"]["launches"],
@@ -2053,28 +2269,45 @@ def main() -> int:
         "pack_fit_memory": pack_row["fit_memory"]["launches"],
         "cli_profile": cli_row["profile"]["attention_launches"],
         "f32_step": bf16["f32"]["launches"],
-        "bf16_trainer_eval": bf16["eval"]["launches"]}, "bfloat16": {
+        "bf16_trainer_eval": bf16["eval"]["launches"],
+        "long_A_eval_no_rewindow": long_a["eval_no_rewindow"]["by_route"][
+            "f32"]}, "bfloat16": {
         "bf16_step": bf16["bf16"]["launches_bf16"],
         "bf16_remat_step": bf16["bf16_remat"]["launches_bf16"],
-        "cast_sr_step": bf16["cast_sr"]["launches_bf16"]}}
+        "cast_sr_step": bf16["cast_sr"]["launches_bf16"]},
+        "float32_stream": {
+        "long_A_eval": long_a["eval"]["by_route"]["f32_stream"],
+        "long_A_eval_no_rewindow": long_a["eval_no_rewindow"]["by_route"][
+            "f32_stream"],
+        "long_A_f32_step": long_a["steps"]["float32_auto"]["by_route"][
+            "f32_stream"],
+        "long_B_eval": long_b["eval"]["by_route"]["f32_stream"]},
+        "bfloat16_stream": {
+        "long_A_bf16_step": long_a["steps"]["bfloat16_auto"]["by_route"][
+            "bf16_stream"]}}
     sources = {"float32": ("attention", "attention.cu"),
-               "bfloat16": ("attention_bf16", "attention_bf16.cu")}
+               "bfloat16": ("attention_bf16", "attention_bf16.cu"),
+               "float32_stream": ("attention_stream_f32",
+                                  "attention_stream.cu"),
+               "bfloat16_stream": ("attention_stream_bf16",
+                                   "attention_stream.cu")}
     kernels = []
-    for dtype, (name, source) in sources.items():
-        row = main_rows[dtype]
-        max_err = max(r["max_abs_err"] for r in rows[dtype])  # every shape
+    for key, (name, source) in sources.items():
+        row = main_rows[key]
+        max_err = max(r["max_abs_err"] for r in rows[key])  # every shape
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"lstc_vad_tpu_torch/csrc/{source}",
             "replaces": "lstc_vad_tpu/ops/pallas_attention.py:50",
-            "launches": sum(by_path[dtype].values()),
-            "launches_by_path": by_path[dtype],
+            "launches": sum(by_path[key].values()),
+            "launches_by_path": by_path[key],
             "max_abs_err": max_err, "max_err": max_err,
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
-            "shape": {k: row[k] for k in ("B", "H", "L", "D", "dtype",
-                                          "bias", "strided")},
+            "shape": {k: row[k] for k in ("B", "H", "L", "d_k", "d_v",
+                                          "dtype", "bias", "strided",
+                                          "route")},
             "card": card})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

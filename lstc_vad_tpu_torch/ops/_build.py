@@ -2,8 +2,8 @@
 
 Each source under ``lstc_vad_tpu_torch/csrc`` is compiled into
 ``lstc_vad_tpu_torch/_build/lib<name>-<hash>.so`` and loaded with ctypes:
-the CUDA kernels (``.cu``, one library per route of the attention
-operator) by ``nvcc`` for ``sm_90a``, the host C++ pack
+the CUDA kernels (``.cu``, one library per kernel source of the
+attention operator) by ``nvcc`` for ``sm_90a``, the host C++ pack
 reader (``packstore.cpp``, data/packed.py) by ``g++``.  The hash covers the
 source and the compiler flags (for a CUDA library every ``.cu`` / ``.cuh``
 file of ``csrc``), so an edited source builds anew and a stale library is
@@ -29,6 +29,7 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = {"attention": "attention.cu", "attention_bf16": "attention_bf16.cu",
+           "attention_stream": "attention_stream.cu",
            "packstore": "packstore.cpp"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

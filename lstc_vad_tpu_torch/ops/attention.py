@@ -13,11 +13,12 @@ Two implementations:
   tests compare with the JAX package, and it is what the CUDA kernel is held
   against on the card.
 - the hand-written Hopper kernels (ops/cuda_attention.py; csrc/attention.cu
-  on f32 tensors, csrc/attention_bf16.cu on bf16 ones), which keep the
+  on f32 tensors, csrc/attention_bf16.cu on bf16 ones, csrc/attention_stream
+  .cu on either at the shapes those two do not take), which keep the
   [L, L] scores on chip.
 
-Shapes: q, k, v: [B, H, L, D]; bias: [H, L, L] broadcast over batch;
-mask: broadcastable to [B, H, L, L], nonzero = keep.
+Shapes: q, k: [B, H, L, d_k]; v: [B, H, L, d_v]; bias: [H, L, L] broadcast
+over batch; mask: broadcastable to [B, H, L, L], nonzero = keep.
 """
 
 from __future__ import annotations

@@ -1,32 +1,40 @@
 """Wrapper of the Hopper attention kernels (csrc/attention.cu,
-csrc/attention_bf16.cu).
+csrc/attention_bf16.cu, csrc/attention_stream.cu).
 
 ``attention(q, k, v, bias, temperature)`` computes
-softmax(q·kᵀ/temperature + bias[h])·v for q, k, v [B, H, L, D] and bias
-[H, L, L] or None.  It replaces the TPU kernel
+softmax(q·kᵀ/temperature + bias[h])·v for q, k [B, H, L, d_k], v
+[B, H, L, d_v] and bias [H, L, L] or None.  It replaces the TPU kernel
 lstc_vad_tpu/ops/pallas_attention.py::_kernel, in both of its routes, chosen
 by q's type:
 
-- float32 q, k, v: csrc/attention.cu, f32-accurate (3xTF32);
-- bfloat16 q, k, v (``encoder.compute_dtype="bfloat16"``):
-  csrc/attention_bf16.cu, bf16 products summed in f32, an f32 softmax, the
-  probabilities and the output rounded to bf16, as the TPU kernel does on
-  bf16 inputs.  The bias is float32 in both.
+- float32 q, k, v: f32-accurate (3xTF32);
+- bfloat16 q, k, v (``encoder.compute_dtype="bfloat16"``): bf16 products
+  summed in f32, an f32 softmax, the probabilities and the output rounded to
+  bf16, as the TPU kernel does on bf16 inputs.  The bias is float32 in both.
 
-Any other type raises.
+Any other type raises.  Each route has two kernels, and ``route`` picks one
+from the shape alone:
 
-- q, k and v may be strided views, as the encoder passes them: a unit
-  innermost stride, a 16-byte-aligned base, and batch, head and row strides
-  that are multiples of 16 bytes (4 f32 or 8 bf16 elements).  The output is
-  a [B, H, L, D] view of a [B, L, H, D] buffer of q's type, the layout the
-  encoder's output projection reads.
+- L <= 128, d_k = d_v a multiple of 32 up to 256, and q, k, v with a
+  16-byte-aligned base and batch, head and row strides that are multiples of
+  16 bytes (4 f32 or 8 bf16 elements): csrc/attention.cu (f32) or
+  csrc/attention_bf16.cu (bf16), which keep a row's scores for every key in
+  registers;
+- every other shape (any L >= 1, any d_k and d_v >= 1, any strides):
+  csrc/attention_stream.cu, which streams the keys in tiles.
+
+q, k and v may be strided views, as the encoder passes them, with a unit
+innermost stride.  The output is a [B, H, L, d_v] view of a
+[B, L, H, d_v] buffer of q's type, the layout the encoder's output
+projection reads.
+
 - On CPU tensors it runs the plain version (ops/attention.py::plain_sdpa),
   because there is no kernel there, and returns it in the same layout.
-- On CUDA tensors it launches the kernel or raises.  It never falls back to
-  the plain version: a shape, dtype or layout the kernel does not take is an
-  error, and so is a launch the runtime refuses.
+- On CUDA tensors it launches a kernel or raises.  It never falls back to
+  the plain version: a type or layout no kernel takes is an error, and so is
+  a launch the runtime refuses.
 
-The one route to the kernel is the registered operator
+The one route to the kernels is the registered operator
 ``lstc_vad::attention(q, k, v, bias?, temperature) -> out``
 (``torch.library.custom_op``): its implementation is ``_launch``, its fake
 implementation states the output's shape and strides, so ``torch.export``
@@ -37,11 +45,15 @@ wraps its kernel in a ``jax.custom_vjp`` that recomputes through
 ``_xla_reference``.  Under ``torch.inference_mode`` (the scorers) nothing is
 saved.  Importing this module registers the operator; an exported program
 that holds it needs the import before ``torch.export.load``.
+``stream_attention`` launches the streaming kernel at any shape, for the
+tests and chip_smoke.py to hold it where the other two also run.
 
-``launches`` counts the kernel launches of this process, both routes
-(forward launches; the backward launches none), and ``launches_bf16`` those
-of the bf16 route alone; a run resets both to 0 and reads them afterwards to
-show that its path went through the kernel.
+``launches`` counts the kernel launches of this process, every kernel
+(forward launches; the backward launches none), ``launches_bf16`` those of
+the bf16 route (both of its kernels) and ``launches_stream`` those of the
+streaming kernel (both routes); ``by_route`` counts each of the four
+kernels, keyed as ``route`` names them.  A run resets them to 0 and reads
+them afterwards to show that its path went through the kernels.
 """
 
 from __future__ import annotations
@@ -56,6 +68,8 @@ from . import _build
 from .attention import plain_sdpa, scalar_in
 
 OP_NAME = "lstc_vad::attention"
+# the tiled kernels (csrc/attention.cu, csrc/attention_bf16.cu) take
+# L <= MAX_L and d_k = d_v a multiple of CHUNK up to MAX_D
 MAX_L = 128       # 16 key tiles of 8 (f32), 8 key tiles of 16 (bf16)
 MAX_D = 256
 CHUNK = 32        # D-columns per pipeline stage
@@ -65,9 +79,12 @@ ROW_BF16 = CHUNK + 8    # bf16 route
 STAGES = 2        # shared-memory buffers of the copy pipeline
 BLOCK_WARPS = 4   # short sequences share a block up to this many warps
 DTYPES = (torch.float32, torch.bfloat16)
+ROUTES = ("f32", "bf16", "f32_stream", "bf16_stream")
 
-launches = 0       # both routes
-launches_bf16 = 0  # the bf16 route
+launches = 0         # every kernel
+launches_bf16 = 0    # the bf16 route, both kernels
+launches_stream = 0  # the streaming kernel, both routes
+by_route = dict.fromkeys(ROUTES, 0)
 
 
 class Tile(NamedTuple):
@@ -107,16 +124,43 @@ def tile_bf16(length: int) -> Tile:
                 STAGES * 2 * pairs * 32 * tiles * ROW_BF16)
 
 
+def route(dtype: torch.dtype, length: int, d_k: int, d_v: int,
+          aligned: bool) -> str:
+    """The kernel that computes attention on CUDA tensors of ``dtype`` at
+    sequence length ``length`` and head widths ``d_k``, ``d_v``: "f32" or
+    "bf16" (csrc/attention.cu, csrc/attention_bf16.cu) where L <= 128, d_k =
+    d_v is a multiple of 32 up to 256 and q, k, v are ``aligned`` (a
+    16-byte-aligned base, batch, head and row strides of whole 16 bytes);
+    "f32_stream" or "bf16_stream" (csrc/attention_stream.cu) at every other
+    shape."""
+    if dtype not in DTYPES:
+        raise TypeError(f"attention: the kernels take float32 or bfloat16, "
+                        f"got {dtype}")
+    name = "f32" if dtype == torch.float32 else "bf16"
+    tiled = (1 <= length <= MAX_L and d_k == d_v and d_k % CHUNK == 0
+             and 0 < d_k <= MAX_D and aligned)
+    return name if tiled else f"{name}_stream"
+
+
 def reset_launches():
-    global launches, launches_bf16
-    launches = launches_bf16 = 0
+    global launches, launches_bf16, launches_stream
+    launches = launches_bf16 = launches_stream = 0
+    by_route.update(dict.fromkeys(ROUTES, 0))
 
 
-# the library, its entry point and its error-string function of each route
+# the library, its entry point and its error-string function of each tiled
+# route
 _ROUTES = {torch.float32: ("attention", "lstc_attention_fwd",
                            "lstc_cuda_error_string"),
            torch.bfloat16: ("attention_bf16", "lstc_attention_bf16_fwd",
                             "lstc_cuda_bf16_error_string")}
+
+
+def _error_string(lib, name: str):
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_char_p
+    return fn
 
 
 @functools.cache
@@ -128,16 +172,32 @@ def _kernel(dtype: torch.dtype = torch.float32):
         ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    error_string = getattr(lib, errors)
-    error_string.argtypes = [ctypes.c_int]
-    error_string.restype = ctypes.c_char_p
-    return fn, error_string
+    return fn, _error_string(lib, errors)
+
+
+@functools.cache
+def _stream_kernel():
+    lib = _build.load("attention_stream")
+    fn = lib.lstc_attention_stream_fwd
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 5 + [
+        ctypes.c_uint, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn, _error_string(lib, "lstc_cuda_stream_error_string")
 
 
 def _strides(t: torch.Tensor):
     """Batch, head and row strides in elements; 0 for a dimension of size 1,
     whose stride PyTorch leaves arbitrary and the kernel never multiplies."""
     return [s if n > 1 else 0 for s, n in zip(t.stride()[:3], t.shape[:3])]
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """Whether 16-byte copies fit ``t``: its base, batch, head and row
+    strides and its width are whole multiples of 16 bytes."""
+    align = 16 // t.element_size()  # elements in 16 bytes
+    return (t.data_ptr() % 16 == 0 and t.shape[-1] % align == 0
+            and all(s % align == 0 for s in _strides(t)))
 
 
 def _check(q, k, v, bias, temperature):
@@ -156,30 +216,17 @@ def _check(q, k, v, bias, temperature):
         if t.dtype != want:
             raise TypeError(f"attention: with {q.dtype} q the kernel takes "
                             f"{want} {name}, got {t.dtype}")
-    align = 16 // q.element_size()  # elements in 16 bytes
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError("attention: q, k, v must share one [B, H, L, D] "
-                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    _check_shapes(q, k, v)
     for name in ("q", "k", "v"):
         t = tensors[name]
         if t.stride(-1) != 1:
             raise ValueError(f"attention: {name} must have a unit innermost "
                              f"stride, got strides {t.stride()}")
-        if t.data_ptr() % 16 or any(s % align for s in _strides(t)):
-            raise ValueError(
-                f"attention: {name} needs a 16-byte-aligned base and batch, "
-                f"head and row strides that are multiples of {align} "
-                f"elements, got strides {t.stride()}")
     if bias is not None and not bias.is_contiguous():
         raise ValueError("attention: bias must be contiguous")
     _, h, length, d = q.shape
-    if d % CHUNK or not 0 < d <= MAX_D:
-        raise ValueError(f"attention: the kernel takes D a multiple of "
-                         f"{CHUNK} up to {MAX_D}, got D={d}")
-    if length > MAX_L:
-        raise ValueError(f"attention: the kernel takes L up to {MAX_L}, got "
-                         f"L={length}")
+    if d < 1:
+        raise ValueError("attention: q and k need d_k >= 1")
     if bias is not None and tuple(bias.shape) != (h, length, length):
         raise ValueError(f"attention: bias must be [H, L, L] = "
                          f"{(h, length, length)}, got {tuple(bias.shape)}")
@@ -188,30 +235,42 @@ def _check(q, k, v, bias, temperature):
                          f"{temperature}")
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            bias: Optional[torch.Tensor], temperature: float) -> torch.Tensor:
-    """The kernel of q's type on CUDA tensors, the plain version on CPU
-    tensors; either way the result is a [B, H, L, D] view of a fresh
-    [B, L, H, D] buffer, the strides the op's fake implementation states."""
-    global launches, launches_bf16
-    tensors = [q, k, v] + ([bias] if bias is not None else [])
+def _check_shapes(q, k, v):
+    """q and k [B, H, L, d_k], v [B, H, L, d_v]."""
+    if q.dim() != 4 or k.shape != q.shape or v.dim() != 4 \
+            or v.shape[:3] != q.shape[:3]:
+        raise ValueError("attention: q, k must share one [B, H, L, d_k] "
+                         "shape and v be [B, H, L, d_v], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+
+
+def _output(q, v) -> torch.Tensor:
+    """A [B, H, L, d_v] view of a fresh [B, L, H, d_v] buffer of q's type."""
+    b, h, length, _ = q.shape
+    return q.new_empty(b, length, h, v.shape[-1]).transpose(1, 2)
+
+
+def _count(name: str):
+    global launches, launches_bf16, launches_stream
+    launches += 1
+    launches_bf16 += name.startswith("bf16")
+    launches_stream += name.endswith("_stream")
+    by_route[name] += 1
+
+
+def _raise_failed(rc, error_string, q, v, name):
     b, h, length, d = q.shape
-    if all(t.device.type == "cpu" for t in tensors):
-        out = q.new_empty(b, length, h, d).transpose(1, 2)
-        return out.copy_(plain_sdpa(q, k, v, temperature, bias=bias))
-    if q.device.type != "cuda":
-        raise ValueError(f"attention: tensors on {q.device}; the kernel "
-                         "runs on CUDA tensors")
-    _check(q, k, v, bias, temperature)
-    out = torch.empty(b, length, h, d, device=q.device,
-                      dtype=q.dtype).transpose(1, 2)
-    if out.numel() == 0:
-        return out
-    strides = (ctypes.c_longlong * 12)(
-        *_strides(q), *_strides(k), *_strides(v), *_strides(out))
-    bf16 = q.dtype == torch.bfloat16
+    raise RuntimeError(f"attention kernel launch failed: "
+                       f"{error_string(rc).decode()} (cudaError {rc}, "
+                       f"{name}, B={b} H={h} L={length} d_k={d} "
+                       f"d_v={v.shape[-1]} {q.dtype})")
+
+
+def _launch_tiled(q, k, v, bias, temperature, out, strides, name):
+    b, h, length, d = q.shape
     fn, error_string = _kernel(q.dtype)
-    pairs = (tile_bf16 if bf16 else tile)(length).pairs
+    pairs = (tile_bf16 if name == "bf16" else tile)(length).pairs
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         # the bf16 route scales by the temperature rounded as plain_sdpa
@@ -221,11 +280,52 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 out.data_ptr(), strides, b, h, length, d, pairs,
                 scalar_in(float(temperature), q.dtype), stream)
     if rc != 0:
-        raise RuntimeError(f"attention kernel launch failed: "
-                           f"{error_string(rc).decode()} (cudaError {rc}, "
-                           f"B={b} H={h} L={length} D={d} {q.dtype})")
-    launches += 1
-    launches_bf16 += bf16
+        _raise_failed(rc, error_string, q, v, name)
+
+
+def _launch_stream(q, k, v, bias, temperature, out, strides, name):
+    b, h, length, d = q.shape
+    vec = sum(bit for bit, t in ((1, q), (2, k), (4, v)) if _aligned(t))
+    fn, error_string = _stream_kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), bias.data_ptr() if bias is not None else None,
+                out.data_ptr(), strides, b, h, length, d, v.shape[-1], vec,
+                scalar_in(float(temperature), q.dtype), stream)
+    if rc != 0:
+        _raise_failed(rc, error_string, q, v, name)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            bias: Optional[torch.Tensor], temperature: float,
+            stream_only: bool = False) -> torch.Tensor:
+    """The kernel ``route`` names for the shape on CUDA tensors (the
+    streaming one at any shape when ``stream_only``), the plain version on
+    CPU tensors; either way the result is a [B, H, L, d_v] view of a fresh
+    [B, L, H, d_v] buffer, the strides the op's fake implementation
+    states."""
+    tensors = [q, k, v] + ([bias] if bias is not None else [])
+    if all(t.device.type == "cpu" for t in tensors):
+        _check_shapes(q, k, v)
+        return _output(q, v).copy_(plain_sdpa(q, k, v, temperature,
+                                              bias=bias))
+    if q.device.type != "cuda":
+        raise ValueError(f"attention: tensors on {q.device}; the kernel "
+                         "runs on CUDA tensors")
+    _check(q, k, v, bias, temperature)
+    out = _output(q, v)
+    if out.numel() == 0:
+        return out
+    name = route(q.dtype, q.shape[2], q.shape[3], v.shape[3],
+                 all(_aligned(t) for t in (q, k, v)))
+    if stream_only and not name.endswith("_stream"):
+        name += "_stream"
+    strides = (ctypes.c_longlong * 12)(
+        *_strides(q), *_strides(k), *_strides(v), *_strides(out))
+    launch = _launch_stream if name.endswith("_stream") else _launch_tiled
+    launch(q, k, v, bias, temperature, out, strides, name)
+    _count(name)
     return out
 
 
@@ -238,15 +338,11 @@ def _attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @_attention_op.register_fake
 def _attention_fake(q, k, v, bias, temperature):
-    """Shape, type and strides only: [B, H, L, D] over a [B, L, H, D]
+    """Shape, type and strides only: [B, H, L, d_v] over a [B, L, H, d_v]
     buffer.  q, k and v may be strided views; nothing here assumes they are
     contiguous."""
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError("attention: q, k, v must share one [B, H, L, D] "
-                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    b, h, length, d = q.shape
-    return q.new_empty(b, length, h, d).transpose(1, 2)
+    _check_shapes(q, k, v)
+    return _output(q, v)
 
 
 def _setup_context(ctx, inputs, output):
@@ -279,3 +375,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               ) -> torch.Tensor:
     """softmax(q·kᵀ/temperature + bias[h])·v through ``lstc_vad::attention``."""
     return _attention_op(q, k, v, bias, float(temperature))
+
+
+def stream_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: Optional[torch.Tensor], temperature: float
+                     ) -> torch.Tensor:
+    """The streaming kernel of q's type at any shape, also where ``route``
+    names a tiled kernel: forward only, outside the operator.  The tests
+    and chip_smoke.py hold it against the plain version there."""
+    return _launch(q, k, v, bias, float(temperature), stream_only=True)

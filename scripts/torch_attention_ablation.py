@@ -2,7 +2,8 @@
 
     python3 scripts/torch_attention_ablation.py [--reps 3]
 
-Builds lstc_vad_tpu_torch/csrc/attention.cu as it is and in altered copies
+Builds lstc_vad_tpu_torch/csrc/attention.cu (the tiled f32 kernel, which
+every shape below routes to) as it is and in altered copies
 (one nvcc each, started together, into lstc_vad_tpu_torch/_build/ablation/),
 then times each build through the package's wrapper at the main path's shape
 (B=924, H=8, L=49, D=256, bias, q/k/v strided as the encoder passes them)
@@ -120,7 +121,8 @@ def use(lib):
     fn.restype = ctypes.c_int
     lib.lstc_cuda_error_string.argtypes = [ctypes.c_int]
     lib.lstc_cuda_error_string.restype = ctypes.c_char_p
-    cuda_attention._kernel = lambda: (fn, lib.lstc_cuda_error_string)
+    cuda_attention._kernel = lambda dtype=None: (
+        fn, lib.lstc_cuda_error_string)
 
 
 def sass_histogram(so_path: str, n_tiles: int):
@@ -153,7 +155,7 @@ def main(argv=None) -> int:
         return 2
     import chip_smoke
     import torch_attention_accuracy
-    from lstc_vad_tpu_torch.ops import _build
+    from lstc_vad_tpu_torch.ops import _build, cuda_attention
     from lstc_vad_tpu_torch.ops.cuda_attention import attention
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -173,6 +175,9 @@ def main(argv=None) -> int:
                    for _ in range(3))
         bias = torch.randn(chip_smoke.H, length, length, device=dev,
                            generator=g)
+        # every shape is one the tiled f32 kernel takes, the one altered
+        assert cuda_attention.route(q.dtype, length, chip_smoke.D,
+                                    chip_smoke.D, True) == "f32"
         inputs[(b, length)] = (q, k, v, bias)
     for _ in range(args.reps):
         for name, lib in libs.items():

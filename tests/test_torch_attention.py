@@ -9,6 +9,12 @@ tests/test_torch_cuda_kernel.py and chip_smoke.py.  The wrapper's autograd
 Function (forward: the kernel; backward: autograd through plain_sdpa) is
 held against plain autograd and against jax.grad of the Pallas kernel's
 custom VJP at rtol 1e-4 / atol 1e-5 (tests/test_pallas_attention.py:56-57).
+
+The operator takes every shape the JAX package's ``sdpa`` computes: parts
+past 128 tokens (L = 129 and 257, against ``_xla_sdpa`` and the Pallas
+kernel) and d_v != d_k (against ``_xla_sdpa``, the JAX package's ``auto``
+path; the Pallas kernel takes its output width from q).  ``route`` names
+the kernel each shape goes to on the card, from the shape alone.
 """
 
 import jax
@@ -61,6 +67,52 @@ def test_plain_matches_jax_at_model_head_width():
                                rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("length", [129, 257])
+def test_long_parts_match_jax_and_pallas(length, with_bias):
+    """C5: parts past 128 tokens (part_len 8 and 16 at 16 patches, with the
+    CLS token) through ``sdpa`` and through the operator, against
+    ``_xla_sdpa`` and the Pallas kernel, which packs one pair a block
+    there."""
+    q, k, v, bias = _inputs(length, 2, 2, length, 32, with_bias)
+    temp = float(np.sqrt(32))
+    ref = np.asarray(_xla_sdpa(q, k, v, bias, None, temp, 0.0, None))
+    pallas = np.asarray(pallas_sdpa(q, k, v, temp, bias=bias, interpret=True))
+    t = torch.from_numpy
+    tb = None if bias is None else t(bias)
+    for ours in (_port(q, k, v, bias, temp, fn=sdpa),
+                 cuda_attention.attention(t(q), t(k), t(v), tb, temp)
+                 .numpy()):
+        np.testing.assert_allclose(ours, ref, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(ours, pallas, rtol=RTOL, atol=ATOL)
+    assert cuda_attention.launches == 0
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("d_k,d_v", [(16, 24), (48, 80), (24, 8)])
+def test_free_head_widths_match_jax(d_k, d_v, with_bias):
+    """C6: d_v != d_k (and widths that are not 32k) through ``sdpa`` and
+    through the operator, against ``_xla_sdpa``: the output is
+    [B, H, L, d_v], a view of a [B, L, H, d_v] buffer from the operator."""
+    rng = np.random.default_rng(d_k * 100 + d_v)
+    b, h, length = 3, 2, 49
+    q, k = (rng.standard_normal((b, h, length, d_k)).astype(np.float32)
+            for _ in range(2))
+    v = rng.standard_normal((b, h, length, d_v)).astype(np.float32)
+    bias = (rng.standard_normal((h, length, length)).astype(np.float32)
+            if with_bias else None)
+    temp = float(np.sqrt(d_k))
+    ref = np.asarray(_xla_sdpa(q, k, v, bias, None, temp, 0.0, None))
+    assert ref.shape == (b, h, length, d_v)
+    t = torch.from_numpy
+    out = cuda_attention.attention(t(q), t(k), t(v),
+                                   None if bias is None else t(bias), temp)
+    assert out.shape == (b, h, length, d_v)
+    assert out.transpose(1, 2).is_contiguous()
+    for ours in (_port(q, k, v, bias, temp, fn=sdpa), out.numpy()):
+        np.testing.assert_allclose(ours, ref, rtol=RTOL, atol=ATOL)
+
+
 def test_mask_and_probs_match_jax():
     q, k, v, _ = _inputs(2, 2, 2, 9, 16, False)
     mask = np.ones((2, 1, 9, 9), np.float32)
@@ -103,16 +155,83 @@ def test_dropout_changes_output_only_when_active():
 
 
 def test_kernel_length_limit():
-    """The kernel covers L <= 128 (16 key tiles); the wrapper refuses
-    L = 129 before it reaches the card, at every D."""
+    """The tiled kernel covers L <= 128 (16 key tiles); past that the
+    wrapper's checks still take the shape, at every D, and route it to the
+    streaming kernel, whose tiles have no length limit."""
     for d in (32, 256):
-        q = torch.zeros(1, 1, 128, d)
-        cuda_attention._check(q, q, q, None, 16.0)
-        q = torch.zeros(1, 1, 129, d)
-        with pytest.raises(ValueError, match="L up to 128, got L=129"):
+        for length, want in ((128, "f32"), (129, "f32_stream")):
+            q = torch.zeros(1, 1, length, d)
             cuda_attention._check(q, q, q, None, 16.0)
+            assert cuda_attention.route(q.dtype, length, d, d, True) == want
     with pytest.raises(ValueError, match="L=129"):
         cuda_attention.tile(129)
+
+
+def _views(kind):
+    """(q, k, v) of one routing case: [B, H, L, d] tensors, or the views
+    that make it."""
+    if kind == "row_stride":  # rows 34 floats apart: not 16-byte aligned
+        q = torch.zeros(2, 2, 9, 34)[..., :32]
+        return q, q, q
+    if kind == "base":
+        q = torch.zeros(2 * 2 * 9 * 32 + 1)[1:].view(2, 2, 9, 32)
+        return q, q, q
+    if kind == "encoder_views":  # [B, L, H, D] buffers seen transposed
+        q = torch.zeros(2, 49, 8, 256).transpose(1, 2)
+        return q, q, q
+    if kind == "bf16_row_stride":  # rows 72 bytes apart
+        q = torch.zeros(2, 2, 9, 36, dtype=torch.bfloat16)[..., :32]
+        return q, q, q
+    length, d_k, d_v, dtype = {
+        "d": (9, 24, 24, torch.float32),
+        "long": (129, 32, 32, torch.float32),
+        "f32_main_shape": (49, 256, 256, torch.float32),
+        "f32_shortest": (1, 32, 32, torch.float32),
+        "f32_longest": (128, 256, 256, torch.float32),
+        "bf16_main_shape": (49, 256, 256, torch.bfloat16),
+        "bf16_narrow": (17, 96, 96, torch.bfloat16),
+        "bf16_longest": (128, 32, 32, torch.bfloat16),
+        "bf16_long": (257, 256, 256, torch.bfloat16),
+        "dv_ne_dk": (49, 256, 128, torch.float32),
+        "bf16_dv_ne_dk": (49, 16, 24, torch.bfloat16),
+        "d_past_256": (49, 288, 288, torch.float32),
+        "d_odd": (10, 13, 7, torch.bfloat16),
+    }[kind]
+    q = torch.zeros(2, 2, length, d_k, dtype=dtype)
+    return q, q, torch.zeros(2, 2, length, d_v, dtype=dtype)
+
+
+ROUTE_CASES = {
+    # the shapes the tiled kernels take stay with them
+    "f32_main_shape": "f32", "f32_shortest": "f32", "f32_longest": "f32",
+    "encoder_views": "f32", "bf16_main_shape": "bf16", "bf16_narrow": "bf16",
+    "bf16_longest": "bf16",
+    # every other shape streams
+    "d": "f32_stream", "row_stride": "f32_stream", "base": "f32_stream",
+    "long": "f32_stream", "bf16_long": "bf16_stream",
+    "bf16_row_stride": "bf16_stream", "dv_ne_dk": "f32_stream",
+    "bf16_dv_ne_dk": "bf16_stream", "d_past_256": "f32_stream",
+    "d_odd": "bf16_stream",
+}
+
+
+@pytest.mark.parametrize("kind", sorted(ROUTE_CASES))
+def test_route_takes_the_shape(kind):
+    """The kernel each shape goes to, from the shape alone; the wrapper's
+    checks take every one of them."""
+    q, k, v = _views(kind)
+    bias = torch.zeros(q.shape[1], q.shape[2], q.shape[2])
+    cuda_attention._check(q, k, v, bias, 4.0)
+    aligned = all(cuda_attention._aligned(t) for t in (q, k, v))
+    got = cuda_attention.route(q.dtype, q.shape[2], q.shape[3], v.shape[3],
+                               aligned)
+    assert got == ROUTE_CASES[kind]
+    assert got in cuda_attention.ROUTES
+
+
+def test_route_refuses_other_types():
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        cuda_attention.route(torch.float16, 49, 256, 256, True)
 
 
 # L -> (query tiles, key tiles, pairs per block, threads, shared bytes)
@@ -159,28 +278,30 @@ def test_kernel_checks_take_the_encoders_strided_views():
     torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("bad", ["dtype", "d", "bias", "contiguous",
-                                 "row_stride", "base", "long"])
+@pytest.mark.parametrize("bad", ["dtype", "bias", "contiguous",
+                                 "temperature", "k_shape", "v_shape",
+                                 "bias_dtype"])
 def test_kernel_checks_reject_what_the_kernel_does_not_take(bad):
     q = torch.zeros(2, 2, 9, 32)
+    k, v = q, q
     bias = torch.zeros(2, 9, 9)
+    temperature = 4.0
     if bad == "dtype":
-        q = q.double()
-    elif bad == "d":
-        q = torch.zeros(2, 2, 9, 24)
+        q = k = v = q.double()
     elif bad == "bias":
         bias = torch.zeros(1, 9, 9)
     elif bad == "contiguous":  # a non-unit innermost stride
         q = torch.zeros(2, 2, 32, 9).transpose(-1, -2)
-    elif bad == "row_stride":  # rows 34 floats apart: not 16-byte aligned
-        q = torch.zeros(2, 2, 9, 34)[..., :32]
-    elif bad == "base":
-        q = torch.zeros(2 * 2 * 9 * 32 + 1)[1:].view(2, 2, 9, 32)
+    elif bad == "temperature":
+        temperature = 0.0
+    elif bad == "k_shape":  # k must be q's shape
+        k = torch.zeros(2, 2, 9, 24)
+    elif bad == "v_shape":  # v needs q's B, H and L
+        v = torch.zeros(2, 2, 8, 32)
     else:
-        q = torch.zeros(2, 2, 129, 32)
-        bias = torch.zeros(2, 129, 129)
+        bias = bias.double()
     with pytest.raises((TypeError, ValueError)):
-        cuda_attention._check(q, q, q, bias, 4.0)
+        cuda_attention._check(q, k, v, bias, temperature)
 
 
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
@@ -225,6 +346,45 @@ def test_kernel_function_gradients_match_plain_and_jax(length, with_bias):
     ref = [np.asarray(g).transpose(0, 2, 1, 3) for g in ref[:3]] + [
         np.asarray(g) for g in ref[3:]]
     assert len(ours) == len(plain) == len(ref)
+    for a, p, r in zip(ours, plain, ref):
+        np.testing.assert_allclose(a.numpy(), p.numpy(), rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL)
+        np.testing.assert_allclose(a.numpy(), r, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("length,d_k,d_v", [(129, 32, 32), (17, 16, 24)])
+def test_kernel_function_gradients_at_long_parts_and_free_heads(length, d_k,
+                                                                d_v):
+    """The operator's autograd at L = 129 and at d_v != d_k against plain
+    autograd and jax.grad of ``_xla_sdpa`` (the JAX package's ``auto``
+    path, which takes both)."""
+    rng = np.random.default_rng(length + d_v)
+    b, h = 2, 2
+    bufs = [rng.standard_normal((b, length, h, d)).astype(np.float32)
+            for d in (d_k, d_k, d_v)]
+    bias = rng.standard_normal((h, length, length)).astype(np.float32)
+    w = rng.standard_normal((b, h, length, d_v)).astype(np.float32)
+    temp = float(np.sqrt(d_k))
+
+    def grads(fn):
+        leaves = [torch.from_numpy(x).requires_grad_() for x in bufs]
+        tb = torch.from_numpy(bias).requires_grad_()
+        out = fn(*(x.transpose(1, 2) for x in leaves), tb, temp)
+        return torch.autograd.grad((out * torch.from_numpy(w)).sum(),
+                                   leaves + [tb])
+
+    ours = grads(cuda_attention.attention)
+    plain = grads(lambda q, k, v, tb, t: plain_sdpa(q, k, v, t, bias=tb))
+
+    def jax_objective(q, k, v, bias_arg):
+        return (_xla_sdpa(q, k, v, bias_arg, None, temp, 0.0, None)
+                * w).sum()
+
+    heads = [x.transpose(0, 2, 1, 3) for x in bufs]
+    ref = jax.grad(jax_objective, argnums=(0, 1, 2, 3))(*heads, bias)
+    ref = [np.asarray(g).transpose(0, 2, 1, 3) for g in ref[:3]] + [
+        np.asarray(ref[3])]
     for a, p, r in zip(ours, plain, ref):
         np.testing.assert_allclose(a.numpy(), p.numpy(), rtol=GRAD_RTOL,
                                    atol=GRAD_ATOL)

@@ -91,7 +91,7 @@ def test_plain_sdpa_f32_and_f64_paths_are_unchanged(dtype):
 def test_bf16_encoder_matches_jax(name):
     kw, n_tok = CONFIGS[name]
     jcfg = JaxEncoderConfig(attn_impl="xla", compute_dtype="bfloat16",
-                            **SMALL, **kw)
+                            **{**SMALL, **kw})
     x = np.random.default_rng(7).standard_normal((3, n_tok, 64),
                                                  dtype=np.float32)
     model, params, port = jax_and_port_encoder(jcfg, x)
@@ -259,13 +259,17 @@ def test_op_passes_opcheck_on_bf16_cpu_inputs(with_bias, grad):
 
 
 def test_bf16_route_checks():
-    """bf16 q, k, v with an f32 bias and 16-byte strides (8 elements) pass;
-    4-element strides, a bf16 bias, mixed types and float16 are refused."""
+    """bf16 q, k, v with an f32 bias pass: with 16-byte strides (8
+    elements) to the tiled bf16 kernel, with 4-element strides to the
+    streaming one; a bf16 bias, mixed types and float16 are refused."""
     q = torch.zeros(2, 9, 2, 32, dtype=torch.bfloat16).transpose(1, 2)
     bias = torch.zeros(2, 9, 9)
-    cuda_attention._check(q, q, q, bias, 4.0)
     odd = torch.zeros(2, 2, 9, 36, dtype=torch.bfloat16)[..., :32]
-    bad = [(odd, odd, odd, bias), (q, q, q, bias.to(torch.bfloat16)),
+    for t, want in ((q, "bf16"), (odd, "bf16_stream")):
+        cuda_attention._check(t, t, t, bias, 4.0)
+        assert cuda_attention.route(t.dtype, 9, 32, 32,
+                                    cuda_attention._aligned(t)) == want
+    bad = [(q, q, q, bias.to(torch.bfloat16)),
            (q, q.float(), q, bias), (q.half(), q.half(), q.half(), bias)]
     for args in bad:
         with pytest.raises((TypeError, ValueError)):

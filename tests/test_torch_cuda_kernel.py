@@ -125,9 +125,6 @@ def test_kernel_large_logits(card, length):
 
 def test_kernel_raises_instead_of_falling_back(card):
     before = cuda_attention.launches
-    q = torch.zeros(1, 1, 129, 256, device=card)
-    with pytest.raises(ValueError, match="L up to 128"):
-        cuda_attention.attention(q, q, q, None, 16.0)
     q = torch.zeros(1, 1, 49, 256, device=card)
     with pytest.raises(TypeError):
         cuda_attention.attention(q.half(), q.half(), q.half(), None, 16.0)
@@ -454,12 +451,15 @@ def test_bf16_kernel_reads_and_writes_the_encoders_layout(card, length):
     assert out.transpose(1, 2).is_contiguous()
 
 
-def test_bf16_kernel_rejects_misaligned_strides(card):
-    before = cuda_attention.launches
+def test_bf16_kernel_streams_misaligned_strides(card):
+    """Rows 72 bytes apart do not fit the tiled kernel's 16-byte copies: the
+    call goes to the streaming kernel; a bf16 bias is still refused."""
     q = torch.zeros(2, 2, 9, 36, device=card,
                     dtype=torch.bfloat16)[..., :32]  # rows 72 bytes apart
-    with pytest.raises(ValueError, match="multiples of 8"):
-        cuda_attention.attention(q, q, q, None, 4.0)
+    before = cuda_attention.by_route["bf16_stream"]
+    _check_bf16(q, q, q, None, 4.0)
+    assert cuda_attention.by_route["bf16_stream"] == before + 1
+    before = cuda_attention.launches
     ok = torch.zeros(2, 2, 9, 32, device=card, dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="float32 bias"):
         cuda_attention.attention(ok, ok, ok, torch.zeros(
@@ -534,3 +534,260 @@ def test_remat_step_launches_the_kernel_twice_per_layer(card):
         if a is not None:
             # the RPE table's gradient is summed with atomics
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+
+
+
+# ------------------------------------------------- the streaming kernel
+#
+# csrc/attention_stream.cu takes every shape the tiled kernels do not:
+# L > 128, d_k != d_v, widths that are not 32k up to 256, strides that do
+# not fit 16-byte copies.  It is held to the same bars as the tiled kernel
+# of its type: f32 at rtol 1e-4 / atol 1e-5 against plain_sdpa (and no
+# farther from float64 than plain_sdpa at large logits), bf16 as
+# _check_bf16 says.
+
+STREAM_LENGTHS = (1, 17, 49, 128, 129, 144, 192, 257, 512, 1024)
+# (d_k, d_v): equal and unequal, narrow, not a multiple of 32, past 256
+STREAM_WIDTHS = ((8, 8), (24, 48), (48, 24), (256, 256), (384, 512),
+                 (1024, 8), (512, 1024))
+
+
+def _stream_inputs(card, seed, b, h, length, d_k, d_v, dtype, with_bias,
+                   layout="contiguous"):
+    """q, k [B, H, L, d_k], v [B, H, L, d_v] of ``dtype``: contiguous, as
+    the encoder's views of [B, L, H, d] buffers (``strided``), or views
+    whose base lies one element past a 16-byte boundary (``unaligned``)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+
+    def make(d):
+        if layout == "strided":
+            x = torch.randn(b, length, h, d, device=card, generator=g)
+            return x.to(dtype).transpose(1, 2)
+        x = torch.randn(b * h * length * d + 1, device=card, generator=g)
+        x = x.to(dtype)
+        start = 1 if layout == "unaligned" else 0
+        return x[start:start + b * h * length * d].view(b, h, length, d)
+
+    q, k, v = make(d_k), make(d_k), make(d_v)
+    bias = (torch.randn(h, length, length, device=card, generator=g)
+            if with_bias else None)
+    return q, k, v, bias
+
+
+def _check_stream(q, k, v, bias, temp, forced=False):
+    """One call that must take the streaming kernel of q's type (through
+    its own launcher when ``forced``, else through the operator), held
+    against plain_sdpa as the route's tiled kernel is."""
+    name = "f32_stream" if q.dtype == torch.float32 else "bf16_stream"
+    before = (cuda_attention.launches, cuda_attention.launches_stream,
+              cuda_attention.by_route[name])
+    fn = (cuda_attention.stream_attention if forced
+          else cuda_attention.attention)
+    if q.dtype == torch.bfloat16:
+        return _check_bf16_with(fn, q, k, v, bias, temp, name, before)
+    out = fn(q, k, v, bias, temp)
+    torch.cuda.synchronize()
+    _assert_stream_launch(name, before)
+    assert out.shape == (*q.shape[:3], v.shape[-1])
+    assert out.transpose(1, 2).is_contiguous()
+    assert torch.isfinite(out).all()
+    ref = plain_sdpa(q, k, v, temp, bias=bias)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    return out
+
+
+def _assert_stream_launch(name, before):
+    assert (cuda_attention.launches, cuda_attention.launches_stream,
+            cuda_attention.by_route[name]) == tuple(x + 1 for x in before)
+
+
+def _check_bf16_with(fn, q, k, v, bias, temp, name, before):
+    out = fn(q, k, v, bias, temp)
+    torch.cuda.synchronize()
+    _assert_stream_launch(name, before)
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    assert out.shape == (*q.shape[:3], v.shape[-1])
+    ref = plain_sdpa(q, k, v, temp, bias=bias)
+    atol = 2 ** -7 * v.float().abs().max().item()
+    err = (out.float() - ref.float()).abs()
+    assert (err <= BF16_RTOL * ref.float().abs() + atol).all(), \
+        err.max().item()
+    exact = _exact(q, k, v, bias, temp)
+    kernel_err = (out.double() - exact).abs().max().item()
+    plain_err = (ref.double() - exact).abs().max().item()
+    assert kernel_err <= 1.05 * plain_err + 1e-6, (kernel_err, plain_err)
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("widths", STREAM_WIDTHS,
+                         ids=[f"dk{a}_dv{b}" for a, b in STREAM_WIDTHS])
+@pytest.mark.parametrize("length", STREAM_LENGTHS)
+def test_stream_kernel_grid(card, length, widths, dtype):
+    """Every L of the grid at every width pair, both routes; with a bias
+    at even L and widths, without at the others; strided as the encoder
+    passes them where both widths are even."""
+    d_k, d_v = widths
+    with_bias = (length + d_k + d_v) % 2 == 0
+    layout = "strided" if length % 2 else "contiguous"
+    q, k, v, bias = _stream_inputs(card, length * 7 + d_k + d_v, 2, 3, length,
+                                   d_k, d_v, getattr(torch, dtype),
+                                   with_bias, layout)
+    temp = float(np.sqrt(d_k))
+    tiled = cuda_attention.route(q.dtype, length, d_k, d_v, True)
+    _check_stream(q, k, v, bias, temp, forced=not tiled.endswith("_stream"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["strided", "unaligned"])
+@pytest.mark.parametrize("length,d_k,d_v", [(49, 256, 256), (129, 256, 256),
+                                            (33, 13, 7), (257, 20, 36),
+                                            (129, 96, 160)])
+def test_stream_kernel_views(card, length, d_k, d_v, layout, dtype):
+    """Strided views and bases off the 16-byte grid (and widths that 16
+    bytes do not divide): the copies fall back to 4-byte cp.async (f32) or
+    2-byte loads (bf16) there, with the same result."""
+    q, k, v, bias = _stream_inputs(card, length + d_k, 3, 4, length, d_k, d_v,
+                                   getattr(torch, dtype), True, layout)
+    aligned = all(cuda_attention._aligned(t) for t in (q, k, v))
+    width = 16 // q.element_size()  # elements in 16 bytes
+    assert aligned == (layout == "strided" and d_k % width == 0
+                       and d_v % width == 0)
+    name = cuda_attention.route(q.dtype, length, d_k, d_v, aligned)
+    _check_stream(q, k, v, bias, float(np.sqrt(d_k)),
+                  forced=not name.endswith("_stream"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("length", [1, 10, 17, 49, 64, 65, 81, 128])
+def test_stream_kernel_where_the_tiled_kernel_runs(card, length, dtype):
+    """Forced through its launcher at the tiled kernels' shapes (D = 256,
+    bias, the encoder's views): the plain version's result, and the tiled
+    kernel's within the route's tolerance."""
+    q, k, v, bias = _stream_inputs(card, 500 + length, 5, 8, length, 256,
+                                   256, getattr(torch, dtype), True,
+                                   "strided")
+    assert cuda_attention.route(q.dtype, length, 256, 256, True) == \
+        ("f32" if dtype == "float32" else "bf16")
+    streamed = _check_stream(q, k, v, bias, 16.0, forced=True)
+    before = cuda_attention.launches_stream
+    tiled = cuda_attention.attention(q, k, v, bias, 16.0)
+    assert cuda_attention.launches_stream == before
+    if dtype == "float32":
+        np.testing.assert_allclose(streamed.cpu().numpy(),
+                                   tiled.cpu().numpy(), rtol=RTOL, atol=ATOL)
+    else:
+        atol = 2 ** -7 * v.float().abs().max().item()
+        err = (streamed.float() - tiled.float()).abs()
+        assert (err <= BF16_RTOL * tiled.float().abs() + atol).all()
+
+
+@pytest.mark.parametrize("length", [129, 257, 1024])
+def test_stream_kernel_large_logits(card, length):
+    """Logits near ±100 (q scaled by 30): the kernel no farther from
+    attention in float64 than the plain f32 version (see
+    test_kernel_large_logits)."""
+    q, k, v, bias = _stream_inputs(card, 700 + length, 2, 8, length, 256,
+                                   128, torch.float32, True)
+    q = q * 30
+    out = cuda_attention.attention(q, k, v, bias, 16.0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    exact = plain_sdpa(q.double(), k.double(), v.double(), 16.0,
+                       bias=bias.double())
+    plain = plain_sdpa(q, k, v, 16.0, bias=bias)
+    kernel_err = (out.double() - exact).abs().max().item()
+    plain_err = (plain.double() - exact).abs().max().item()
+    assert kernel_err <= plain_err, (kernel_err, plain_err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("length,d_k,d_v", [(129, 256, 256), (49, 16, 24),
+                                            (257, 48, 80)])
+def test_stream_kernel_backward_gives_the_plain_gradients(card, length, d_k,
+                                                          d_v, dtype):
+    """Through the operator at L = 129 and at d_v != d_k: the forward
+    launches the streaming kernel, and the registered autograd (through
+    plain_sdpa) gives the plain gradients bit for bit."""
+    dt = getattr(torch, dtype)
+    b, h = 4, 3
+
+    def leaves():
+        gen = torch.Generator(device=card).manual_seed(length + d_v)
+        bufs = [torch.randn(b, length, h, d, device=card, generator=gen)
+                .to(dt).requires_grad_() for d in (d_k, d_k, d_v)]
+        bias = torch.randn(h, length, length, device=card,
+                           generator=gen).requires_grad_()
+        return bufs, bias
+
+    w = torch.randn(b, h, length, d_v, device=card).to(dt)
+    bufs, bias = leaves()
+    before = cuda_attention.launches_stream
+    out = cuda_attention.attention(*(x.transpose(1, 2) for x in bufs), bias,
+                                   float(np.sqrt(d_k)))
+    assert cuda_attention.launches_stream == before + 1
+    (out * w).float().sum().backward()
+    ref_bufs, ref_bias = leaves()
+    ref = plain_sdpa(*(x.transpose(1, 2) for x in ref_bufs),
+                     float(np.sqrt(d_k)), bias=ref_bias)
+    (ref * w).float().sum().backward()
+    for x, r in list(zip(bufs, ref_bufs)) + [(bias, ref_bias)]:
+        assert x.grad is not None and torch.equal(x.grad, r.grad)
+
+
+def test_routes_on_the_card_follow_the_shape(card):
+    """The tiled kernels keep their shapes (the main path's, L <= 128, D =
+    32k up to 256, aligned); every other shape launches the streaming
+    kernel, counted once in its route."""
+    cases = [((49, 256, 256), "strided", "f32"),
+             ((128, 32, 32), "contiguous", "f32"),
+             ((129, 256, 256), "strided", "f32_stream"),
+             ((49, 256, 128), "strided", "f32_stream"),
+             ((49, 288, 288), "contiguous", "f32_stream"),
+             ((49, 256, 256), "unaligned", "f32_stream")]
+    for dtype in (torch.float32, torch.bfloat16):
+        for (length, d_k, d_v), layout, want in cases:
+            if dtype == torch.bfloat16:
+                want = want.replace("f32", "bf16")
+            q, k, v, bias = _stream_inputs(card, length, 2, 8, length, d_k,
+                                           d_v, dtype, True, layout)
+            cuda_attention.reset_launches()
+            cuda_attention.attention(q, k, v, bias, 16.0)
+            assert cuda_attention.by_route == {
+                r: int(r == want) for r in cuda_attention.ROUTES}, want
+            assert cuda_attention.launches == 1
+            assert cuda_attention.launches_stream == int(
+                want.endswith("_stream"))
+            assert cuda_attention.launches_bf16 == int(
+                dtype == torch.bfloat16)
+
+
+def test_long_part_encoder_takes_the_streaming_kernel(card):
+    """A small sht_ltn at part_len 8 (L = 129) and one with d_v != d_k
+    score parts on the card through the streaming kernel, once a layer a
+    call, within 5e-5 of the plain path."""
+    from lstc_vad_tpu_torch.config import replace
+    from lstc_vad_tpu_torch.evaluation.scoring import _scorer_apply
+    from lstc_vad_tpu_torch.models import build
+
+    for overrides in ({"data.part_len": 8, "encoder.window_depth": 8},
+                      {"encoder.d_k": 24, "encoder.d_v": 40}):
+        cfg, (enc, head) = _small_ltn(card, **overrides)
+        plain_enc, plain_head = build(
+            replace(cfg, **{"encoder.attn_impl": "plain"}), device=card,
+            seed=0)
+        plain_enc.load_state_dict(enc.state_dict())
+        plain_head.load_state_dict(head.state_dict())
+        n_tok = cfg.data.part_len * cfg.data.n_patch
+        x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            (6, n_tok, 64)).astype(np.float32)).to(card)
+        cuda_attention.reset_launches()
+        with torch.inference_mode():
+            got = _scorer_apply(enc, head, "classifier", False, x)
+            assert cuda_attention.launches_stream == \
+                cuda_attention.launches == cfg.encoder.n_layers
+            want = _scorer_apply(plain_enc, plain_head, "classifier", False,
+                                 x)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=0, atol=5e-5)

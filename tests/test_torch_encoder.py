@@ -41,6 +41,12 @@ CONFIGS = {
                                      input_layernorm=True,
                                      ffn_layernorm=True), 16),
     "ffn_need_false": (dict(ffn_need=False), 16),
+    # C5: parts past 128 tokens (part_len 8 and 16 at 16 patches)
+    "ltn_long_parts_L129": (dict(window_depth=8, **LTN), 128),
+    "ltn_long_parts_L257": (dict(window_depth=16, **LTN), 256),
+    # C6: d_v != d_k (w_vs and fc on n_head * d_v)
+    "ltn_free_heads_dk16_dv24": (dict(window_depth=3, d_v=24, **LTN), 48),
+    "stn_free_heads_dk24_dv8": (dict(ffn_layernorm=True, d_k=24, d_v=8), 16),
 }
 
 
@@ -67,7 +73,7 @@ def jax_and_port_encoder(jcfg: JaxEncoderConfig, x: np.ndarray, seed=0):
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_encoder_matches_jax(name):
     kw, n_tok = CONFIGS[name]
-    jcfg = JaxEncoderConfig(attn_impl="xla", **SMALL, **kw)
+    jcfg = JaxEncoderConfig(attn_impl="xla", **{**SMALL, **kw})
     x = np.random.default_rng(7).standard_normal((3, n_tok, 64),
                                                  dtype=np.float32)
     model, params, port = jax_and_port_encoder(jcfg, x)
@@ -106,6 +112,48 @@ def test_attention_gets_views_of_the_projections(monkeypatch):
             assert t.stride() == (49 * 128, 32, 128, 1)
             assert t._base is not None and t._base.shape == (2, 49, 128)
         cuda_attention._check(q, k, v, None, 4.0)
+
+
+@pytest.mark.parametrize("window_depth", [8, 16])
+def test_long_parts_match_the_jax_pallas_encoder(window_depth):
+    """C5 against the JAX encoder on its Pallas kernel (interpret mode, one
+    pair a block past 128 tokens): L = 129 and 257."""
+    jcfg = JaxEncoderConfig(attn_impl="pallas", window_depth=window_depth,
+                            **SMALL, **LTN)
+    x = np.random.default_rng(11).standard_normal(
+        (2, 16 * window_depth, 64), dtype=np.float32)
+    model, params, port = jax_and_port_encoder(jcfg, x)
+    ref = np.asarray(model.apply({"params": params}, x, deterministic=True))
+    with torch.no_grad():
+        ours = port(torch.from_numpy(x)).numpy()
+    assert ours.shape == (2, 16 * window_depth + 1, 64)
+    np.testing.assert_allclose(ours, ref, rtol=2e-4, atol=2e-5)
+
+
+def test_free_head_encoder_exports_and_matches_jax(tmp_path):
+    """C6 through torch.export: the operator's fake implementation gives
+    [B, H, L, d_v] at d_v != d_k, so an encoder with d_k 16, d_v 24 exports
+    (dynamic batch), and the saved and reloaded program gives the JAX
+    encoder's output."""
+    jcfg = JaxEncoderConfig(attn_impl="xla", window_depth=3,
+                            **{**SMALL, "d_v": 24}, **LTN)
+    x = np.random.default_rng(12).standard_normal((3, 48, 64),
+                                                  dtype=np.float32)
+    model, params, port = jax_and_port_encoder(jcfg, x)
+    ref = np.asarray(model.apply({"params": params}, x, deterministic=True))
+    batch = torch.export.Dim("batch", min=1, max=64)
+    program = torch.export.export(port, (torch.from_numpy(x),),
+                                  dynamic_shapes=({0: batch},))
+    assert any(n.target is torch.ops.lstc_vad.attention.default
+               for n in program.graph.nodes)
+    path = str(tmp_path / "encoder.pt2")
+    torch.export.save(program, path)
+    loaded = torch.export.load(path).module()
+    with torch.no_grad():
+        ours = loaded(torch.from_numpy(x)).numpy()
+        one = loaded(torch.from_numpy(x[:1])).numpy()
+    np.testing.assert_allclose(ours, ref, rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(one, ref[:1], rtol=2e-4, atol=2e-5)
 
 
 def test_attention_maps_and_values_match_jax():

@@ -49,9 +49,10 @@ def sht(tmp_path_factory):
                          d_model=32)
 
 
-def _jax_side(preset_name, h5, test_txt, mask_dir, tail_rewindow=True):
+def _jax_side(preset_name, h5, test_txt, mask_dir, tail_rewindow=True,
+              **overrides):
     """JAX weights, scorer and per-video frame scores for the preset."""
-    cfg = jax_preset(preset_name, **SMALL)
+    cfg = jax_preset(preset_name, **SMALL, **overrides)
     d = cfg.data
     enc = JaxEncoder(cfg.encoder)
     head = jax_make_head(cfg.head.kind, cfg.head.d_model, cfg.head.hidden_dim)
@@ -115,6 +116,29 @@ def test_ltn_slice_matches_jax(sht, tail_rewindow):
     # on the CPU the wrapper runs the plain version and launches nothing
     assert cuda_attention.launches == before == 0
     assert scorer.scorer.n_calls >= 1
+
+
+@pytest.mark.parametrize("tail_rewindow", [True, False])
+def test_ltn_slice_at_long_parts_matches_jax(sht, tail_rewindow):
+    """C5 end to end: part_len 8 (L = 129, window_depth tied to it as the
+    preset ties them), so full parts and re-windowed tails are 129 tokens
+    and the unre-windowed tails shorter; frame scores and AUC as JAX's."""
+    h5, _, test_txt, mask_dir = sht
+    long_parts = {"data.part_len": 8, "encoder.window_depth": 8}
+    cfg, params, ref_auc, ref_scores = _jax_side(
+        "sht_ltn", h5, test_txt, mask_dir, tail_rewindow, **long_parts)
+    assert cfg.data.part_len * cfg.data.n_patch + 1 == 129
+    enc, head = _port_models(cfg, params)
+    store = FeatureStore(h5)
+    videos = load_test_videos("SHT", test_txt, store, mask_dir=mask_dir)
+    scorer = PartScorer(enc, head, cfg.data.part_len, cfg.data.n_patch,
+                        tail_rewindow=tail_rewindow)
+    ours = drivers.evaluate_ltn(scorer, [((lambda v=v: v.feat), v.anno)
+                                         for v in videos],
+                                return_scores=True)
+    store.close()
+    _assert_same(ours, (ref_auc, ref_scores))
+    assert cuda_attention.launches == 0 and scorer.scorer.n_calls >= 1
 
 
 def test_stn_slice_matches_jax(sht):

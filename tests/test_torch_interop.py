@@ -36,7 +36,7 @@ def _jax_params(jcfg, n_tok, kind="classifier"):
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_state_dict_bit_equal_to_jax_exporter(name):
     kw, n_tok = CONFIGS[name]
-    jcfg = JaxEncoderConfig(attn_impl="xla", **SMALL, **kw)
+    jcfg = JaxEncoderConfig(attn_impl="xla", **{**SMALL, **kw})
     kind = "regressor" if "stn" in name else "classifier"
     enc, head = _jax_params(jcfg, n_tok, kind)
     ours_enc, ours_head = state_dict_from_jax(enc, head, jcfg, kind)
