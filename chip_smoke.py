@@ -20,14 +20,17 @@
    than plain_sdpa x1.05, against attention in float64.  Times the kernel,
    the plain version and, as a yardstick the package never calls,
    F.scaled_dot_product_attention (its mask in q's type), with the bound at
-   the route's bytes per element and tensor-core rate.  Then the streaming
-   kernel (csrc/attention_stream.cu) of each route, strided with bias: at
-   the main path's shape forced through its own launcher (where the tiled
-   kernels run), at L = 129, 144, 192, 257 (B=256), 512 and 1024 (B=64),
-   H=8, D=256, and at config B's heads (4 x d_k 512, d_v 384, the main
-   path's part count), with the same checks and times; each call must
-   launch the kernel ``route`` names.  Prints ptxas's registers and spills
-   of each kernel instantiation.
+   the route's bytes per element and tensor-core rate, the achieved
+   TFLOP/s of the two products and the share of the bound.  Then the
+   streaming kernel of each route (csrc/attention_stream.cu f32,
+   csrc/attention_stream_bf16.cu bf16), strided with bias: at the main
+   path's shape forced through its own launcher (where the tiled kernels
+   run), at L = 129, 144, 192, 257 (B=256), 512 and 1024 (B=64), H=8,
+   D=256, and at config B's heads (4 x d_k 512, d_v 384, the main path's
+   part count), with the same checks and times and the kernel's launch
+   geometry (``plan``: dynamic shared memory, threads, rows, stages); each
+   call must launch the kernel ``route`` names.  Prints ptxas's registers,
+   static shared memory and spills of each kernel instantiation.
 3. Slice phase (the main path): LTN scoring to frame AUC at full sht_ltn
    width (3 layers, d_model 2048, d_inner 4096, 8 heads, d_k 256) with
    random weights from a torch.Generator seeded 0, over synthetic features
@@ -274,16 +277,25 @@ def bound(b: int, length: int, with_bias: bool, itemsize: int = 4,
 
 def ptxas_lines(log: str):
     """One line per kernel instantiation from nvcc's -Xptxas=-v output: its
-    key-tile count (the tiled kernels' template argument) or route (the
-    streaming kernel's), registers, stack and spills."""
+    template arguments (the tiled kernels' key-tile count NT; the f32
+    streaming kernel's V columns a warp takes of a stage, WS; the bf16
+    streaming kernel's 64-column O blocks a consumer warpgroup holds, NB,
+    its consumer warpgroups, NC, and its key tile, KEYS), registers, static
+    shared memory,
+    stack and spills.  The streaming kernels' dynamic shared memory is in
+    each kernel row's ``plan``."""
     name, spill = "?", ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r"ILi(\d+)E", m.group(1))
-            route = re.search(r"INS_\d+(F32|BF16)E", m.group(1))
-            name = (f"NT={t.group(1)}" if t else route.group(1) if route
-                    else m.group(1))
+            entry = m.group(1)
+            bf16 = re.search(
+                r"stream_bf16_kernelILi(\d+)ELi(\d+)ELi(\d+)E", entry)
+            f32 = re.search(r"stream_kernelILi(\d+)E", entry)
+            t = re.search(r"ILi(\d+)E", entry)
+            name = (f"bf16 stream NB={bf16.group(1)} NC={bf16.group(2)} "
+                    f"KEYS={bf16.group(3)}" if bf16 else f"f32 stream WS={f32.group(1)}" if f32
+                    else f"NT={t.group(1)}" if t else entry)
         elif "bytes stack frame" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line:
@@ -370,9 +382,16 @@ def check_kernel(b: int, length: int, with_bias: bool, dev,
     mask = bias[None].to(dt) if bias is not None else None
     bound_ms, bound_by = bound(b, length, with_bias, q.element_size(), d_k,
                                d_v, h)
+    if route.endswith("_stream"):
+        row["plan"] = cuda_attention.stream_plan(dt, length, d_k, d_v,
+                                                 with_bias)
+    ms = cuda_ms(lambda: attention(q, k, v, bias, temp))
     return {
         **row,
-        "ms": cuda_ms(lambda: attention(q, k, v, bias, temp)),
+        "ms": ms,
+        # the two products' FLOP over the time, and the bound over the time
+        "tflops": 2 * b * h * length * length * (d_k + d_v) / ms / 1e9,
+        "bound_share": bound_ms / ms,
         "plain_ms": cuda_ms(lambda: plain_sdpa(q, k, v, temp, bias=bias)),
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, scale=1.0 / temp)),
@@ -2290,7 +2309,7 @@ def main() -> int:
                "float32_stream": ("attention_stream_f32",
                                   "attention_stream.cu"),
                "bfloat16_stream": ("attention_stream_bf16",
-                                   "attention_stream.cu")}
+                                   "attention_stream_bf16.cu")}
     kernels = []
     for key, (name, source) in sources.items():
         row = main_rows[key]

@@ -30,6 +30,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = {"attention": "attention.cu", "attention_bf16": "attention_bf16.cu",
            "attention_stream": "attention_stream.cu",
+           "attention_stream_bf16": "attention_stream_bf16.cu",
            "packstore": "packstore.cpp"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

@@ -13,9 +13,10 @@ Two implementations:
   tests compare with the JAX package, and it is what the CUDA kernel is held
   against on the card.
 - the hand-written Hopper kernels (ops/cuda_attention.py; csrc/attention.cu
-  on f32 tensors, csrc/attention_bf16.cu on bf16 ones, csrc/attention_stream
-  .cu on either at the shapes those two do not take), which keep the
-  [L, L] scores on chip.
+  on f32 tensors, csrc/attention_bf16.cu on bf16 ones, and at the shapes
+  those two do not take csrc/attention_stream.cu (f32) and
+  csrc/attention_stream_bf16.cu (bf16)), which keep the [L, L] scores on
+  chip.
 
 Shapes: q, k: [B, H, L, d_k]; v: [B, H, L, d_v]; bias: [H, L, L] broadcast
 over batch; mask: broadcastable to [B, H, L, L], nonzero = keep.

@@ -1,5 +1,6 @@
 """Wrapper of the Hopper attention kernels (csrc/attention.cu,
-csrc/attention_bf16.cu, csrc/attention_stream.cu).
+csrc/attention_bf16.cu, csrc/attention_stream.cu,
+csrc/attention_stream_bf16.cu).
 
 ``attention(q, k, v, bias, temperature)`` computes
 softmax(q·kᵀ/temperature + bias[h])·v for q, k [B, H, L, d_k], v
@@ -20,8 +21,13 @@ from the shape alone:
   16 bytes (4 f32 or 8 bf16 elements): csrc/attention.cu (f32) or
   csrc/attention_bf16.cu (bf16), which keep a row's scores for every key in
   registers;
-- every other shape (any L >= 1, any d_k and d_v >= 1, any strides):
-  csrc/attention_stream.cu, which streams the keys in tiles.
+- every other shape (any L >= 1, any d_k and d_v >= 1, any strides): the
+  streaming kernels, which walk the keys in tiles with the scores of one
+  tile at a time on chip: csrc/attention_stream.cu (f32: one pass with an
+  online softmax, 3xTF32 on mma.sync, K and V through a cp.async ring) and
+  csrc/attention_stream_bf16.cu (bf16: wgmma, with Q, K and V brought in
+  by TMA behind mbarriers by a producer warpgroup, a statistics phase past
+  one key tile so that P is rounded as plain_sdpa rounds it).
 
 q, k and v may be strided views, as the encoder passes them, with a unit
 innermost stride.  The output is a [B, H, L, d_v] view of a
@@ -131,8 +137,8 @@ def route(dtype: torch.dtype, length: int, d_k: int, d_v: int,
     "bf16" (csrc/attention.cu, csrc/attention_bf16.cu) where L <= 128, d_k =
     d_v is a multiple of 32 up to 256 and q, k, v are ``aligned`` (a
     16-byte-aligned base, batch, head and row strides of whole 16 bytes);
-    "f32_stream" or "bf16_stream" (csrc/attention_stream.cu) at every other
-    shape."""
+    "f32_stream" or "bf16_stream" (csrc/attention_stream.cu,
+    csrc/attention_stream_bf16.cu) at every other shape."""
     if dtype not in DTYPES:
         raise TypeError(f"attention: the kernels take float32 or bfloat16, "
                         f"got {dtype}")
@@ -175,15 +181,43 @@ def _kernel(dtype: torch.dtype = torch.float32):
     return fn, _error_string(lib, errors)
 
 
+# the same for each streaming route
+_STREAM_ROUTES = {torch.float32: ("attention_stream",
+                                  "lstc_attention_stream_fwd",
+                                  "lstc_cuda_stream_error_string"),
+                  torch.bfloat16: ("attention_stream_bf16",
+                                   "lstc_attention_stream_bf16_fwd",
+                                   "lstc_cuda_stream_bf16_error_string")}
+
+
 @functools.cache
-def _stream_kernel():
-    lib = _build.load("attention_stream")
-    fn = lib.lstc_attention_stream_fwd
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
+def _stream_kernel(dtype: torch.dtype):
+    name, entry, errors = _STREAM_ROUTES[dtype]
+    lib = _build.load(name)
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 5 + [
         ctypes.c_uint, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn, _error_string(lib, "lstc_cuda_stream_error_string")
+    return fn, _error_string(lib, errors)
+
+
+def stream_plan(dtype: torch.dtype, length: int, d_k: int, d_v: int,
+                with_bias: bool) -> dict:
+    """The streaming kernel's launch geometry at a shape, as its launcher
+    computes it: dynamic shared memory bytes, threads and query rows a
+    block, ring stages, and whether Q stays resident.  Builds the kernel's
+    library (the geometry lives in its C source)."""
+    name, entry, _ = _STREAM_ROUTES[dtype]
+    fn = getattr(_build.load(name), entry.replace("_fwd", "_plan"))
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 5)()
+    rc = fn(length, d_k, d_v, int(with_bias), out)
+    if rc != 0:
+        raise RuntimeError(f"attention: no launch geometry fits L={length} "
+                           f"d_k={d_k} d_v={d_v} (cudaError {rc})")
+    return dict(zip(("smem_bytes", "threads", "rows", "stages",
+                     "q_resident"), out))
 
 
 def _strides(t: torch.Tensor):
@@ -286,11 +320,11 @@ def _launch_tiled(q, k, v, bias, temperature, out, strides, name):
 def _launch_stream(q, k, v, bias, temperature, out, strides, name):
     b, h, length, d = q.shape
     vec = sum(bit for bit, t in ((1, q), (2, k), (4, v)) if _aligned(t))
-    fn, error_string = _stream_kernel()
+    fn, error_string = _stream_kernel(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), bias.data_ptr() if bias is not None else None,
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                bias.data_ptr() if bias is not None else None,
                 out.data_ptr(), strides, b, h, length, d, v.shape[-1], vec,
                 scalar_in(float(temperature), q.dtype), stream)
     if rc != 0:

@@ -539,36 +539,43 @@ def test_remat_step_launches_the_kernel_twice_per_layer(card):
 
 # ------------------------------------------------- the streaming kernel
 #
-# csrc/attention_stream.cu takes every shape the tiled kernels do not:
-# L > 128, d_k != d_v, widths that are not 32k up to 256, strides that do
-# not fit 16-byte copies.  It is held to the same bars as the tiled kernel
-# of its type: f32 at rtol 1e-4 / atol 1e-5 against plain_sdpa (and no
-# farther from float64 than plain_sdpa at large logits), bf16 as
-# _check_bf16 says.
+# csrc/attention_stream.cu (f32) and csrc/attention_stream_bf16.cu (bf16)
+# take every shape the tiled kernels do not: L > 128, d_k != d_v, widths
+# that are not 32k up to 256, strides that do not fit 16-byte copies.  They
+# are held to the same bars as the tiled kernel of their type: f32 at rtol
+# 1e-4 / atol 1e-5 against plain_sdpa (and no farther from float64 than
+# plain_sdpa at large logits), bf16 as _check_bf16 says.
 
-STREAM_LENGTHS = (1, 17, 49, 128, 129, 144, 192, 257, 512, 1024)
-# (d_k, d_v): equal and unequal, narrow, not a multiple of 32, past 256
+# both sides of one and two key tiles (32 keys f32, 64 bf16), the models'
+# L, and long parts
+STREAM_LENGTHS = (1, 2, 17, 31, 33, 49, 63, 65, 127, 128, 129, 144, 192,
+                  257, 512, 1024)
+# (d_k, d_v): equal and unequal, narrow, not a multiple of 32, past 256 and
+# across the split of O over warps (f32: 128 columns a warp; bf16: 256 a
+# warpgroup, two past that, passes past 512), d_k 512 with config B's d_v
+# at the shared-memory limit, and d_k 2048, where Q no longer fits whole
 STREAM_WIDTHS = ((8, 8), (24, 48), (48, 24), (256, 256), (384, 512),
-                 (1024, 8), (512, 1024))
+                 (1024, 8), (512, 1024), (64, 257), (512, 384), (2048, 64))
 
 
 def _stream_inputs(card, seed, b, h, length, d_k, d_v, dtype, with_bias,
                    layout="contiguous"):
     """q, k [B, H, L, d_k], v [B, H, L, d_v] of ``dtype``: contiguous, as
-    the encoder's views of [B, L, H, d] buffers (``strided``), or views
-    whose base lies one element past a 16-byte boundary (``unaligned``)."""
+    the encoder's views of [B, L, H, d] buffers (``strided``), views whose
+    base lies one element past a 16-byte boundary (``unaligned``), or
+    contiguous but for one such tensor (``unaligned_q``, ``_k``, ``_v``)."""
     g = torch.Generator(device=card).manual_seed(seed)
 
-    def make(d):
+    def make(d, name):
         if layout == "strided":
             x = torch.randn(b, length, h, d, device=card, generator=g)
             return x.to(dtype).transpose(1, 2)
         x = torch.randn(b * h * length * d + 1, device=card, generator=g)
         x = x.to(dtype)
-        start = 1 if layout == "unaligned" else 0
+        start = int(layout in ("unaligned", f"unaligned_{name}"))
         return x[start:start + b * h * length * d].view(b, h, length, d)
 
-    q, k, v = make(d_k), make(d_k), make(d_v)
+    q, k, v = make(d_k, "q"), make(d_k, "k"), make(d_v, "v")
     bias = (torch.randn(h, length, length, device=card, generator=g)
             if with_bias else None)
     return q, k, v, bias
@@ -640,20 +647,28 @@ def test_stream_kernel_grid(card, length, widths, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("layout", ["strided", "unaligned"])
+@pytest.mark.parametrize("layout", ["strided", "unaligned", "unaligned_q",
+                                    "unaligned_k", "unaligned_v"])
 @pytest.mark.parametrize("length,d_k,d_v", [(49, 256, 256), (129, 256, 256),
                                             (33, 13, 7), (257, 20, 36),
                                             (129, 96, 160)])
 def test_stream_kernel_views(card, length, d_k, d_v, layout, dtype):
     """Strided views and bases off the 16-byte grid (and widths that 16
-    bytes do not divide): the copies fall back to 4-byte cp.async (f32) or
-    2-byte loads (bf16) there, with the same result."""
+    bytes do not divide), of all three tensors or of one: such a tensor is
+    copied 4 bytes at a time (f32) or element by element by the producer
+    warp instead of by TMA (bf16), with the same result."""
     q, k, v, bias = _stream_inputs(card, length + d_k, 3, 4, length, d_k, d_v,
                                    getattr(torch, dtype), True, layout)
     aligned = all(cuda_attention._aligned(t) for t in (q, k, v))
     width = 16 // q.element_size()  # elements in 16 bytes
     assert aligned == (layout == "strided" and d_k % width == 0
                        and d_v % width == 0)
+    if layout.startswith("unaligned_"):
+        for name, t in zip("qkv", (q, k, v)):
+            if name != layout[-1]:
+                assert cuda_attention._aligned(t) == (t.shape[-1] % width == 0)
+            else:
+                assert not cuda_attention._aligned(t)
     name = cuda_attention.route(q.dtype, length, d_k, d_v, aligned)
     _check_stream(q, k, v, bias, float(np.sqrt(d_k)),
                   forced=not name.endswith("_stream"))
@@ -683,14 +698,19 @@ def test_stream_kernel_where_the_tiled_kernel_runs(card, length, dtype):
         assert (err <= BF16_RTOL * tiled.float().abs() + atol).all()
 
 
+@pytest.mark.parametrize("growing", [False, True])
 @pytest.mark.parametrize("length", [129, 257, 1024])
-def test_stream_kernel_large_logits(card, length):
+def test_stream_kernel_large_logits(card, length, growing):
     """Logits near ±100 (q scaled by 30): the kernel no farther from
     attention in float64 than the plain f32 version (see
-    test_kernel_large_logits)."""
+    test_kernel_large_logits).  ``growing``: a bias that rises along the
+    keys as well (0 to 60), so that the row max grows at every key tile and
+    the online softmax rescales O each time."""
     q, k, v, bias = _stream_inputs(card, 700 + length, 2, 8, length, 256,
                                    128, torch.float32, True)
     q = q * 30
+    if growing:
+        bias = bias + torch.linspace(0, 60, length, device=card)
     out = cuda_attention.attention(q, k, v, bias, 16.0)
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
@@ -734,6 +754,49 @@ def test_stream_kernel_backward_gives_the_plain_gradients(card, length, d_k,
     (ref * w).float().sum().backward()
     for x, r in list(zip(bufs, ref_bufs)) + [(bias, ref_bias)]:
         assert x.grad is not None and torch.equal(x.grad, r.grad)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("length", [65, 129, 257, 1024])
+def test_stream_kernel_late_growing_max(card, length, dtype):
+    """Scores that grow along the keys (a bias rising from 0 to 12, and the
+    largest logit of each row in its last keys): every key tile raises the
+    running max, so every tile rescales O and the sum; within the route's
+    bars of plain_sdpa."""
+    q, k, v, bias = _stream_inputs(card, 900 + length, 2, 4, length, 64, 96,
+                                   getattr(torch, dtype), True, "strided")
+    bias = bias + torch.linspace(0, 12, length, device=card)
+    _check_stream(q, k, v, bias, 8.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("widths", STREAM_WIDTHS,
+                         ids=[f"dk{a}_dv{b}" for a, b in STREAM_WIDTHS])
+def test_stream_plan_fits_the_block(card, widths, dtype):
+    """The launch geometry the streaming kernels compute: within a block's
+    227 KB of shared memory and 1024 threads, whole warps, and Q held
+    resident for the whole of d_k up to 512 (streamed in chunks only past
+    what shared memory holds)."""
+    d_k, d_v = widths
+    for length in (1, 129, 1024):
+        plan = cuda_attention.stream_plan(getattr(torch, dtype), length, d_k,
+                                          d_v, True)
+        assert 0 < plan["smem_bytes"] <= 232448, plan
+        assert plan["threads"] % 32 == 0 and plan["threads"] <= 1024, plan
+        assert plan["rows"] % 16 == 0 and plan["stages"] >= 1, plan
+        if d_k <= 512:
+            assert plan["q_resident"] == 1, plan
+        if d_k >= 2048:
+            assert plan["q_resident"] == 0, plan
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stream_kernel_grid_past_65535_blocks(card, dtype):
+    """B·H = 22,000 pairs of 3 query tiles each at L = 129: 66,000 blocks,
+    past the 65,535 a grid's y or z dimension would take."""
+    q, k, v, bias = _stream_inputs(card, 11, 2750, 8, 129, 8, 8,
+                                   getattr(torch, dtype), True, "strided")
+    _check_stream(q, k, v, bias, float(np.sqrt(8)))
 
 
 def test_routes_on_the_card_follow_the_shape(card):
