@@ -21,7 +21,9 @@
    the plain version and, as a yardstick the package never calls,
    F.scaled_dot_product_attention (its mask in q's type), with the bound at
    the route's bytes per element and tensor-core rate, the achieved
-   TFLOP/s of the two products and the share of the bound.  Then the
+   TFLOP/s of the two products and the share of the bound, and the bf16
+   route's launch geometry (``plan``: shared memory, threads, rows and
+   heads a tile, rows a head, stages).  Then the
    streaming kernel of each route (csrc/attention_stream.cu f32,
    csrc/attention_stream_bf16.cu bf16), strided with bias: at the main
    path's shape forced through its own launcher (where the tiled kernels
@@ -170,7 +172,16 @@
    heads of d_k 512 and d_v 384, scores the test split against a plain
    copy; its attention launches only the streaming kernel.  Prints a
    ``long`` line.
-16. Prints each phase's wall time, one JSON line of kernels (for each of the
+16. ubnormal phase, right after the long phase: ubnormal_ltn at full width
+   (d_model 1024, 3 layers, 8 heads of d_k 256, part_len 5: L = 81) with
+   encoder.compute_dtype="bfloat16", from seed-0 weights, scores the
+   synthetic SHT-scale test split (its features cut to 1024 wide) to frame
+   AUC through the tiled bf16 kernel at L = 81 (n_layers launches an
+   encoder call, no other kernel), through a plain copy, and through the
+   plain copy with its attention in float64: the kernel's eval no farther
+   from the float64 one than the plain eval (AUC within that distance +
+   1e-4, mean frame-score distance x1.05).  Prints a ``ubnormal`` line.
+17. Prints each phase's wall time, one JSON line of kernels (for each of the
    four kernels, launches summed over every path above, and by path), then,
    as the last line, {"ok": true, "device": {"platform": "gpu", "kind":
    ..., "count": ...}}.
@@ -292,10 +303,14 @@ def ptxas_lines(log: str):
             bf16 = re.search(
                 r"stream_bf16_kernelILi(\d+)ELi(\d+)ELi(\d+)E", entry)
             f32 = re.search(r"stream_kernelILi(\d+)E", entry)
+            tiled = re.search(r"^_ZN\w*attention_bf16_kernelILi(\d+)ELi(\d+)E",
+                              entry)
             t = re.search(r"ILi(\d+)E", entry)
             name = (f"bf16 stream NB={bf16.group(1)} NC={bf16.group(2)} "
-                    f"KEYS={bf16.group(3)}" if bf16 else f"f32 stream WS={f32.group(1)}" if f32
-                    else f"NT={t.group(1)}" if t else entry)
+                    f"KEYS={bf16.group(3)}" if bf16
+                    else f"f32 stream WS={f32.group(1)}" if f32
+                    else f"bf16 NC={tiled.group(1)} DB={tiled.group(2)}"
+                    if tiled else f"NT={t.group(1)}" if t else entry)
         elif "bytes stack frame" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line:
@@ -385,6 +400,8 @@ def check_kernel(b: int, length: int, with_bias: bool, dev,
     if route.endswith("_stream"):
         row["plan"] = cuda_attention.stream_plan(dt, length, d_k, d_v,
                                                  with_bias)
+    elif route == "bf16":
+        row["plan"] = cuda_attention.bf16_plan(length, d_k)
     ms = cuda_ms(lambda: attention(q, k, v, bias, temp))
     return {
         **row,
@@ -1002,6 +1019,100 @@ def run_long(cfg_t, store, items, card: str, device="cuda",
     if card_run:
         torch.cuda.empty_cache()
     return {**out, "preset": "sht_ltn", "card": card}
+
+
+def sdpa64(q, k, v, temperature, bias=None, **_):
+    """Attention in float64 on q, k, v as they come (q scaled by the
+    temperature as plain_sdpa scales it), the output rounded to v's type:
+    the reference a bf16 eval is held to."""
+    import torch
+
+    from lstc_vad_tpu_torch.ops.attention import scalar_in
+
+    s = torch.matmul((q / scalar_in(temperature, q.dtype)).double(),
+                     k.double().transpose(-1, -2))
+    if bias is not None:
+        s = s + bias.double()
+    return torch.matmul(torch.softmax(s, -1), v.double()).to(v.dtype)
+
+
+def run_ubnormal(items, card: str, device="cuda", **overrides) -> dict:
+    """ubnormal phase: a bf16-compute ubnormal_ltn (``overrides`` on top;
+    full width on the card) from seed-0 weights scores ``items`` (their
+    features cut to the preset's width) to frame AUC through the kernel,
+    through a plain copy, and through the plain copy with its attention in
+    float64 (``sdpa64``).  On the card every encoder call launches the
+    tiled bf16 kernel once a layer and nothing else.  The kernel's eval
+    must be no farther from the float64-attention eval than the plain
+    one: in AUC (plus AUC_TOL) and in mean frame-score distance (x
+    BF16_F64_SLACK), as the kernel phase holds each bf16 call.  (Not
+    within AUC_TOL of the plain eval: two bf16 evals that round apart
+    differ by more here, and the plain eval itself lies 3.8e-4 from the
+    float64-attention one, farther than the kernel's; PERF.md §6.)  On the
+    CPU
+    (a rehearsal at a tiny width) nothing launches."""
+    from lstc_vad_tpu_torch.config import preset
+    from lstc_vad_tpu_torch.evaluation.drivers import evaluate_ltn
+    from lstc_vad_tpu_torch.evaluation.scoring import PartScorer
+    from lstc_vad_tpu_torch.models import build
+    from lstc_vad_tpu_torch.ops import attention as attention_module
+    from lstc_vad_tpu_torch.ops import cuda_attention
+
+    cfg = preset("ubnormal_ltn", **{"encoder.compute_dtype": "bfloat16",
+                                    **overrides})
+    d = cfg.data
+    feats = [(f[..., :d.d_model], labels) for f, labels in items]
+    enc, head = build(cfg, device=device, seed=SEED)
+    plain = plain_copy(cfg, enc, head)
+    out = {"preset": "ubnormal_ltn", "compute_dtype": "bfloat16",
+           "L": d.part_len * d.n_patch + 1}
+    runs = {}
+    for name, (e, h) in (("kernel", (enc, head)), ("plain", plain),
+                         ("f64attn", plain)):
+        scorer = PartScorer(e, h, d.part_len, d.n_patch,
+                            tail_rewindow=cfg.eval_tail_rewindow)
+        plain_sdpa = attention_module.plain_sdpa
+        if name == "f64attn":
+            attention_module.plain_sdpa = sdpa64
+        cuda_attention.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            auc, scores = evaluate_ltn(scorer, feats, d.segment_len,
+                                       return_scores=True)
+        finally:
+            attention_module.plain_sdpa = plain_sdpa
+        out[f"{name}_wall_s"] = time.perf_counter() - t0
+        runs[name] = (auc, np.concatenate(scores),
+                      dict(cuda_attention.by_route), scorer.scorer.n_calls)
+    auc, scores, by_route, calls = runs["kernel"]
+    check_launches(by_route["bf16"], cfg.encoder.n_layers, calls, device,
+                   "ubnormal bf16 eval")
+    if sum(by_route.values()) != by_route["bf16"] or any(
+            n for name in ("plain", "f64attn")
+            for n in runs[name][2].values()):
+        raise AssertionError(f"ubnormal bf16 eval: launches {by_route}, "
+                             f"plain {runs['plain'][2]}")
+    ref_auc, ref = runs["f64attn"][:2]
+    plain_auc, plain_scores = runs["plain"][:2]
+    row = {"auc": auc, "plain_auc": plain_auc, "f64attn_auc": ref_auc,
+           "auc_minus_plain": auc - plain_auc,
+           "auc_minus_f64attn": auc - ref_auc,
+           "plain_auc_minus_f64attn": plain_auc - ref_auc,
+           "max_abs_score_err_vs_plain": float(np.abs(scores -
+                                                      plain_scores).max()),
+           "mean_score_dist_f64attn": float(np.abs(scores - ref).mean()),
+           "plain_mean_score_dist_f64attn": float(np.abs(plain_scores -
+                                                         ref).mean())}
+    if not np.isfinite(auc) \
+            or abs(auc - ref_auc) > abs(plain_auc - ref_auc) + AUC_TOL \
+            or row["mean_score_dist_f64attn"] > BF16_F64_SLACK * row[
+                "plain_mean_score_dist_f64attn"]:
+        raise AssertionError(f"ubnormal bf16 eval farther from the "
+                             f"float64-attention eval than the plain one: "
+                             f"{row}")
+    return {**out, **row, "encoder_calls": calls,
+            "launches": by_route["bf16"], "by_route": by_route,
+            "frames": len(scores), "card": card}
 
 
 def set_up_coteach(cfg_t, root: str):
@@ -2236,6 +2347,11 @@ def main() -> int:
         walls["long"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
+        ubnormal = run_ubnormal(items, card)
+        print("ubnormal " + json.dumps(ubnormal))
+        walls["ubnormal"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
         coteach = run_coteach(*set_up_coteach(cfg_t, root), store,
                               test_videos, root, card)
         print("coteach " + json.dumps(coteach))
@@ -2293,7 +2409,8 @@ def main() -> int:
             "f32"]}, "bfloat16": {
         "bf16_step": bf16["bf16"]["launches_bf16"],
         "bf16_remat_step": bf16["bf16_remat"]["launches_bf16"],
-        "cast_sr_step": bf16["cast_sr"]["launches_bf16"]},
+        "cast_sr_step": bf16["cast_sr"]["launches_bf16"],
+        "ubnormal_bf16_eval": ubnormal["launches"]},
         "float32_stream": {
         "long_A_eval": long_a["eval"]["by_route"]["f32_stream"],
         "long_A_eval_no_rewindow": long_a["eval_no_rewindow"]["by_route"][

@@ -8,9 +8,10 @@ Train/spatio_transformer_shanghaitech.py:201-267,
 Train/temporal_transformer_shanghaitech.py:257-323).  Only flags that affect
 math / data semantics are kept; logging paths etc. live in the CLI layer.
 
-``EncoderConfig.attn_impl`` takes this package's own values (ops/attention.py):
-"auto" (the CUDA kernel on a CUDA tensor, the plain version on a CPU tensor)
-and "plain" (the plain version on any device).
+``EncoderConfig.attn_impl`` (ops/attention.py::sdpa) takes "auto" or the JAX
+package's "pallas" (the CUDA kernel on a CUDA tensor, the plain version on a
+CPU tensor) and "plain" or the JAX package's "xla" (the plain version on any
+device); anything else raises at the encoder's first forward.
 
 Presets at the bottom reproduce the reference defaults per dataset and model
 (STN = spatio / short-temporal network, LTN = long-temporal network).
@@ -54,7 +55,7 @@ class EncoderConfig:
     window_depth: int = 3          # Wd (clip index within a part); = part_len for LTN
     weight_init: bool = False      # xavier-uniform over all >=2-D params
     layer_norm_eps: float = 1e-6
-    attn_impl: str = "auto"        # "auto" | "plain"
+    attn_impl: str = "auto"        # "auto" | "pallas" | "plain" | "xla"
     # Train-time knobs (models/encoder.py); evaluation runs f32, no remat,
     # no SR whatever they say.
     compute_dtype: str = "float32" # "float32" | "bfloat16"

@@ -30,7 +30,11 @@ import torch
 import torch.nn.functional as F
 
 MASK_FILL = -1e9
-IMPLS = ("auto", "plain")
+# "auto" and "plain" are this package's; "pallas" and "xla" are the JAX
+# package's names for the same two paths (lstc_vad_tpu/config.py:50), so a
+# command line written for it runs here
+IMPLS = ("auto", "plain", "pallas", "xla")
+KERNEL_IMPLS = ("auto", "pallas")  # the kernel on a CUDA tensor
 
 
 def scalar_in(x: float, dtype: torch.dtype) -> float:
@@ -90,20 +94,23 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          return_probs: bool = False):
     """Dispatching SDPA.  ``impl``:
 
-    - "auto": the CUDA kernel on a CUDA tensor, the plain version on a CPU
-      tensor (the kernel's wrapper makes that choice by device);
-    - "plain": the plain version on any device (tests and chip_smoke.py hold
-      the kernel against it).
+    - "auto", or the JAX package's "pallas" (its kernel path): the CUDA
+      kernel on a CUDA tensor, the plain version on a CPU tensor (the
+      kernel's wrapper makes that choice by device);
+    - "plain", or the JAX package's "xla" (its non-kernel path): the plain
+      version on any device, by the user's choice (tests and chip_smoke.py
+      hold the kernel against it).
 
     A mask, active dropout or ``return_probs`` takes the plain path: the
-    kernel computes none of them.  That choice is made from the arguments,
-    never by catching a kernel failure."""
+    kernel computes none of them, as JAX's "pallas" takes its XLA path
+    there.  That choice is made from the arguments, never by catching a
+    kernel failure."""
     if impl not in IMPLS:
         # a typo'd config knob must not silently run the plain path while
         # the user believes they are exercising the kernel
         raise ValueError(f"unknown attention impl {impl!r}; "
                          f"expected one of {IMPLS}")
-    if impl == "plain" or mask is not None or dropout_p > 0.0 \
+    if impl not in KERNEL_IMPLS or mask is not None or dropout_p > 0.0 \
             or return_probs:
         return plain_sdpa(q, k, v, temperature, bias=bias, mask=mask,
                           dropout_p=dropout_p, return_probs=return_probs)

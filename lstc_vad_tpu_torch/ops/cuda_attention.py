@@ -20,7 +20,9 @@ from the shape alone:
   16-byte-aligned base and batch, head and row strides that are multiples of
   16 bytes (4 f32 or 8 bf16 elements): csrc/attention.cu (f32) or
   csrc/attention_bf16.cu (bf16), which keep a row's scores for every key in
-  registers;
+  registers (the bf16 one persistent, one block an SM, with Q, K, V in by
+  TMA, wgmma for both products and O out by TMA; ``bf16_plan`` reads its
+  launch geometry);
 - every other shape (any L >= 1, any d_k and d_v >= 1, any strides): the
   streaming kernels, which walk the keys in tiles with the scores of one
   tile at a time on chip: csrc/attention_stream.cu (f32: one pass with an
@@ -76,13 +78,13 @@ from .attention import plain_sdpa, scalar_in
 OP_NAME = "lstc_vad::attention"
 # the tiled kernels (csrc/attention.cu, csrc/attention_bf16.cu) take
 # L <= MAX_L and d_k = d_v a multiple of CHUNK up to MAX_D
-MAX_L = 128       # 16 key tiles of 8 (f32), 8 key tiles of 16 (bf16)
+MAX_L = 128       # 16 key tiles of 8 (f32); one tile of 128 rows (bf16)
 MAX_D = 256
 CHUNK = 32        # D-columns per pipeline stage
-# shared-memory rows, in elements, padded against bank conflicts
-ROW_FLOATS = CHUNK + 4  # f32 route
-ROW_BF16 = CHUNK + 8    # bf16 route
-STAGES = 2        # shared-memory buffers of the copy pipeline
+# shared-memory rows of the f32 route, in floats, padded against bank
+# conflicts
+ROW_FLOATS = CHUNK + 4
+STAGES = 2        # shared-memory buffers of the f32 route's copy pipeline
 BLOCK_WARPS = 4   # short sequences share a block up to this many warps
 DTYPES = (torch.float32, torch.bfloat16)
 ROUTES = ("f32", "bf16", "f32_stream", "bf16_stream")
@@ -114,20 +116,6 @@ def tile(length: int) -> Tile:
     rows = 16 * m_tiles + 8 * n_tiles
     return Tile(m_tiles, n_tiles, pairs, 32 * m_tiles * pairs,
                 STAGES * 4 * pairs * rows * ROW_FLOATS)
-
-
-def tile_bf16(length: int) -> Tile:
-    """The bf16 route's launch geometry at sequence length ``length`` (kept
-    in step with csrc/attention_bf16.cu::launch): query rows and keys padded
-    to 16, a warp per 16 query rows, and at L <= 32 as many pairs a block as
-    make 4 warps."""
-    if not 1 <= length <= MAX_L:
-        raise ValueError(f"attention: the kernel takes 1 <= L <= {MAX_L}, "
-                         f"got L={length}")
-    tiles = -(-length // 16)
-    pairs = max(1, BLOCK_WARPS // tiles)
-    return Tile(tiles, tiles, pairs, 32 * tiles * pairs,
-                STAGES * 2 * pairs * 32 * tiles * ROW_BF16)
 
 
 def route(dtype: torch.dtype, length: int, d_k: int, d_v: int,
@@ -174,11 +162,33 @@ def _kernel(dtype: torch.dtype = torch.float32):
     name, entry, errors = _ROUTES[dtype]
     lib = _build.load(name)
     fn = getattr(lib, entry)
+    # B, H, L, D, and the f32 route's pairs a block
+    n_ints = 5 if dtype == torch.float32 else 4
     fn.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * n_ints + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn, _error_string(lib, errors)
+
+
+BF16_PLAN_KEYS = ("smem_bytes", "threads", "rows", "heads", "head_rows",
+                  "stages")
+
+
+def bf16_plan(length: int, d: int) -> dict:
+    """The tiled bf16 kernel's launch geometry at L = ``length`` and
+    d_k = d_v = ``d``, as its launcher computes it: dynamic shared memory
+    bytes and threads a block (one block an SM), query rows a tile, heads
+    a tile, rows a head takes in it, and ring stages.  Builds the kernel's
+    library (the geometry lives in its C source)."""
+    fn = _build.load("attention_bf16").lstc_attention_bf16_plan
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(BF16_PLAN_KEYS))()
+    if fn(length, d, out) != 0:
+        raise ValueError(f"attention: the tiled bf16 kernel does not take "
+                         f"L={length} d={d}")
+    return dict(zip(BF16_PLAN_KEYS, out))
 
 
 # the same for each streaming route
@@ -304,14 +314,15 @@ def _raise_failed(rc, error_string, q, v, name):
 def _launch_tiled(q, k, v, bias, temperature, out, strides, name):
     b, h, length, d = q.shape
     fn, error_string = _kernel(q.dtype)
-    pairs = (tile_bf16 if name == "bf16" else tile)(length).pairs
+    # the f32 route takes its pairs a block; the bf16 one plans in C
+    pairs = (tile(length).pairs,) if name == "f32" else ()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         # the bf16 route scales by the temperature rounded as plain_sdpa
         # rounds it (16 at every preset: exact)
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 bias.data_ptr() if bias is not None else None,
-                out.data_ptr(), strides, b, h, length, d, pairs,
+                out.data_ptr(), strides, b, h, length, d, *pairs,
                 scalar_in(float(temperature), q.dtype), stream)
     if rc != 0:
         _raise_failed(rc, error_string, q, v, name)

@@ -127,7 +127,7 @@ def test_mask_and_probs_match_jax():
                                rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("impl", ["auto", "plain"])
+@pytest.mark.parametrize("impl", ["auto", "plain", "pallas", "xla"])
 def test_every_impl_on_cpu_is_the_plain_version(impl):
     q, k, v, bias = _inputs(3, 2, 2, 17, 32, True)
     t = torch.from_numpy
@@ -137,12 +137,15 @@ def test_every_impl_on_cpu_is_the_plain_version(impl):
     assert cuda_attention.launches == before == 0
 
 
-@pytest.mark.parametrize("impl", ["pallas", "cuda", "Auto"])
+@pytest.mark.parametrize("impl", ["cuda", "Auto", "XLA"])
 def test_unknown_impl_raises(impl):
-    """The JAX package's values and near-misses are not this package's."""
+    """Near-misses of the accepted values raise, and the message names
+    every accepted one (the JAX package's "pallas" and "xla" among them)."""
     q = torch.zeros(1, 2, 4, 8)
-    with pytest.raises(ValueError, match="unknown attention impl"):
+    with pytest.raises(ValueError, match="unknown attention impl") as err:
         sdpa(q, q, q, temperature=2.0, impl=impl)
+    for name in ("auto", "plain", "pallas", "xla"):
+        assert repr(name) in str(err.value)
 
 
 def test_dropout_changes_output_only_when_active():

@@ -276,22 +276,74 @@ def test_bf16_route_checks():
             cuda_attention._check(*args, 4.0)
 
 
-# L -> (16-row tiles, 16-key tiles, pairs per block, threads, shared bytes)
-TILES_BF16 = {1: (1, 1, 4, 128, 20480), 17: (2, 2, 2, 128, 20480),
-              49: (4, 4, 1, 128, 20480), 65: (5, 5, 1, 160, 25600),
-              81: (6, 6, 1, 192, 30720), 128: (8, 8, 1, 256, 40960)}
+# The tiled bf16 kernel's launch geometry (csrc/attention_bf16.cu::plan,
+# read on the card by cuda_attention.bf16_plan and held to the same rule in
+# tests/test_torch_cuda_kernel.py::test_bf16_plan_fits_the_block), written
+# out: 64-row tiles of 64/R heads of R rows (the least of 16, 32, 64 that
+# holds L), one a consumer warpgroup, or 128 rows of one head over both of
+# a block's consumer warpgroups; a stage holds Q, K and V of a tile, 3 x
+# ceil(D/64) boxes of 128 bytes a row, and 32 bytes of barriers; each
+# consumer warpgroup two 8 KB O boxes; as many stages as fit, up to 4, an
+# even number at 64-row tiles (two tiles in flight, each on every other).
+SMEM_LIMIT, MAX_STAGES = 232448, 4
 
 
-@pytest.mark.parametrize("length", sorted(TILES_BF16))
-def test_bf16_tile_table(length):
-    """Rows and keys padded to 16, at least 4 warps a block where pairs
-    share it, and at most 48 KB of shared memory at every L."""
-    t = cuda_attention.tile_bf16(length)
-    assert tuple(t) == TILES_BF16[length]
-    assert 16 * (t.m_tiles - 1) < length <= 16 * t.m_tiles
-    assert t.threads == 32 * t.m_tiles * t.pairs <= 256
-    assert t.smem_bytes == (cuda_attention.STAGES * t.pairs * 32 * t.m_tiles
-                            * cuda_attention.ROW_BF16 * 2) <= 48 * 1024
+def bf16_plan(length, d):
+    rows = next(r for r in (16, 32, 64, 128) if length <= r)
+    nc = 2 if rows == 128 else 1
+    stage = 3 * -(-d // 64) * 64 * nc * 128 + 32
+    fixed = 2 * 2 * 8192
+    stages = min(MAX_STAGES, (SMEM_LIMIT - fixed) // stage)
+    if nc == 1:  # two 64-row tiles in flight, each on every other stage
+        stages -= stages % 2
+    return {"smem_bytes": stages * stage + fixed, "threads": 384,
+            "rows": 64 * nc, "heads": max(1, 64 // rows), "head_rows": rows,
+            "stages": stages}
+
+
+# (L, D) -> (shared bytes, threads, tile rows, heads a tile, rows a head,
+# stages) at the shapes the models run and both sides of each tile edge
+PLANS_BF16 = {
+    (1, 32): (131200, 384, 64, 4, 16, 4),
+    (10, 256): (229440, 384, 64, 4, 16, 2),
+    (16, 96): (229504, 384, 64, 4, 16, 4),
+    (17, 256): (229440, 384, 64, 2, 32, 2),
+    (32, 64): (131200, 384, 64, 2, 32, 4),
+    (33, 256): (229440, 384, 64, 1, 64, 2),
+    (49, 256): (229440, 384, 64, 1, 64, 2),
+    (64, 160): (180288, 384, 64, 1, 64, 2),
+    (65, 256): (229408, 384, 128, 1, 128, 1),
+    (81, 256): (229408, 384, 128, 1, 128, 1),
+    (96, 128): (229440, 384, 128, 1, 128, 2),
+    (128, 32): (229504, 384, 128, 1, 128, 4),
+}
+
+
+@pytest.mark.parametrize("length,d", sorted(PLANS_BF16))
+def test_bf16_plan_table(length, d):
+    """The written-out geometry at the model shapes and tile edges."""
+    assert tuple(bf16_plan(length, d).values()) == PLANS_BF16[length, d]
+
+
+@pytest.mark.parametrize("d", list(range(32, 257, 32)))
+@pytest.mark.parametrize("length", [1, 16, 17, 32, 33, 64, 65, 128])
+def test_bf16_plan_fits_a_block(length, d):
+    """At every tile edge and D the tiled bf16 route takes: the tile holds
+    L rows of each of its heads, the block's shared memory fits 227 KB,
+    and one more stage (two at 64-row tiles) would not, or the ring is at
+    its 4."""
+    assert cuda_attention.route(torch.bfloat16, length, d, d, True) == "bf16"
+    p = bf16_plan(length, d)
+    assert p["head_rows"] >= length and p["heads"] * p["head_rows"] in (
+        64, 128)
+    assert p["rows"] == max(64, p["head_rows"])
+    assert 1 <= p["stages"] <= MAX_STAGES
+    assert p["smem_bytes"] <= SMEM_LIMIT
+    stage = (p["smem_bytes"] - 2 * 2 * 8192) // p["stages"]
+    step = 2 if p["rows"] == 64 else 1
+    assert p["stages"] % step == 0
+    assert p["stages"] == MAX_STAGES or \
+        p["smem_bytes"] + step * stage > SMEM_LIMIT
 
 
 def test_compute_dtype_is_float32_or_bfloat16():

@@ -238,6 +238,23 @@ def test_ucf_evaluate_matches_jax(ucf_ckpt, tmp_path):
         np.testing.assert_allclose(got[key], want[key], rtol=0, atol=1e-5)
 
 
+def test_evaluate_takes_the_jax_attn_impl_values(ucf_ckpt):
+    """C7: the JAX command line ``evaluate --set encoder.attn_impl=xla``
+    runs in the port and gives the JAX CLI's AUC; an unknown value fails,
+    naming the accepted ones."""
+    args = ["evaluate", *ucf_ckpt, "--set", "encoder.attn_impl=xla"]
+    res = run(*args)
+    assert abs(auc_of(res.stdout) - auc_of(_jax_cli(args))) <= 1e-4
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    bad = subprocess.run([sys.executable, "-m", "lstc_vad_tpu_torch",
+                          *args[:-1], "encoder.attn_impl=xlaa", "--device",
+                          "cpu"], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert bad.returncode != 0
+    assert "unknown attention impl 'xlaa'" in bad.stderr
+    assert "'pallas', 'xla'" in bad.stderr
+
+
 def test_ucf_evaluate_per_class_matches_jax(ucf_ckpt):
     args = [*ucf_ckpt, "--per-class", "--n-anomaly-classes", "1"]
     ref = _jax_cli(["evaluate", *args]).splitlines()[-1]

@@ -437,8 +437,11 @@ def test_bf16_kernel_narrow_heads(card, d, length):
 
 @pytest.mark.parametrize("length,pairs", [(10, 9), (28, 3)])
 def test_bf16_kernel_partial_last_block(card, length, pairs):
-    assert pairs % cuda_attention.tile_bf16(length).pairs
-    q, k, v, bias = _bf16_inputs(card, pairs, pairs, 1, length, 64, True)
+    """``pairs`` heads a batch row where a tile packs several heads: the
+    row's last tile is partial, its missing heads zero-filled by TMA and
+    never stored."""
+    assert pairs % cuda_attention.bf16_plan(length, 64)["heads"]
+    q, k, v, bias = _bf16_inputs(card, pairs, 2, pairs, length, 64, True)
     _check_bf16(q, k, v, bias, 8.0)
 
 
@@ -465,6 +468,137 @@ def test_bf16_kernel_streams_misaligned_strides(card):
         cuda_attention.attention(ok, ok, ok, torch.zeros(
             2, 9, 9, device=card, dtype=torch.bfloat16), 4.0)
     assert cuda_attention.launches == before
+
+
+def _sms() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def test_bf16_plan_fits_the_block(card):
+    """The tiled bf16 kernel's launch geometry at every L and D it takes:
+    64-row tiles of 64/R heads of R = 16, 32 or 64 rows (the least that
+    holds L), or 128 rows of one head over both consumer warpgroups of a
+    block; as many ring stages, up to 4 (an even number at 64-row tiles,
+    two of which are in flight), as a block's 227 KB hold beside two 8 KB
+    O boxes a consumer warpgroup and 32 bytes of barriers a stage."""
+    for length in range(1, 129):
+        for d in range(32, 257, 32):
+            plan = cuda_attention.bf16_plan(length, d)
+            rows = plan["head_rows"]
+            assert rows in (16, 32, 64, 128) and rows >= length, plan
+            assert rows == 16 or rows // 2 < length, plan
+            assert plan["rows"] == (128 if rows == 128 else 64), plan
+            assert plan["heads"] == max(1, 64 // rows), plan
+            assert plan["threads"] == 384, plan
+            stage = 3 * -(-d // 64) * plan["rows"] * 128 + 32
+            fixed = 2 * 2 * 8192
+            assert plan["smem_bytes"] == plan["stages"] * stage + fixed
+            assert plan["smem_bytes"] <= 232448, plan
+            assert 1 <= plan["stages"] <= 4, plan
+            step = 2 if plan["rows"] == 64 else 1  # two tiles in flight
+            assert plan["stages"] % step == 0, plan
+            assert plan["stages"] == 4 or \
+                fixed + (plan["stages"] + step) * stage > 232448, plan
+    for length, d in ((0, 64), (129, 64), (49, 16), (49, 288), (49, 48)):
+        with pytest.raises(ValueError):
+            cuda_attention.bf16_plan(length, d)
+
+
+@pytest.mark.parametrize("d", [32, 96, 256])
+@pytest.mark.parametrize("length", [1, 16, 17, 32, 33, 64, 65, 96, 127,
+                                    128])
+def test_bf16_kernel_tile_edges(card, length, d):
+    """Both sides of every tile edge (4, 2 and 1 heads a 64-row tile, one
+    head over 128 rows) at a width of one half box (32), one and a half
+    (96: √96 is not a power of two, so q is scaled in shared memory) and
+    four boxes (256: S is scaled in f32), with the bias, strided."""
+    q, k, v, bias = _bf16_inputs(card, 3000 + length + d, 3, 8, length, d,
+                                 True, strided=True)
+    _check_bf16(q, k, v, bias, float(np.sqrt(d)))
+
+
+@pytest.mark.parametrize("length", [1, 10, 16, 17, 28, 32])
+@pytest.mark.parametrize("h", [1, 3, 5])
+def test_bf16_kernel_packs_heads_when_h_is_not_a_multiple(card, h, length):
+    """H = 1, 3 or 5 where a tile packs 4 or 2 heads: every batch row ends
+    in a partial tile whose missing heads are zero-filled (a box of more
+    heads than the tensor has, at H = 1) and never stored; the scores
+    between packed heads are masked."""
+    heads = cuda_attention.bf16_plan(length, 256)["heads"]
+    assert heads > 1 and h % heads
+    q, k, v, bias = _bf16_inputs(card, 3500 + 10 * h + length, 7, h, length,
+                                 256, True, strided=True)
+    _check_bf16(q, k, v, bias, 16.0)
+
+
+@pytest.mark.parametrize("length,b,h", [(17, 100, 5), (49, 150, 3),
+                                        (81, 50, 7)])
+def test_bf16_kernel_persistent_loop(card, length, b, h):
+    """More tiles than persistent blocks (one an SM), so every block walks
+    several, with a partial last tile of each batch row where heads are
+    packed."""
+    heads = cuda_attention.bf16_plan(length, 64)["heads"]
+    assert b * -(-h // heads) > 2 * _sms()
+    q, k, v, bias = _bf16_inputs(card, 3700 + length, b, h, length, 64,
+                                 True, strided=True)
+    _check_bf16(q, k, v, bias, 8.0)
+
+
+@pytest.mark.parametrize("length", [10, 49, 81, 128])
+def test_bf16_kernel_writes_only_its_view(card, length):
+    """out a view of heads 2-4 and columns 0-95 of an encoder-layout
+    [B, L, 8, 128] buffer filled with a guard value (q, k, v such views
+    too): the kernel's TMA stores write the view and leave every other
+    head, column and row of the buffer as it was."""
+    import ctypes
+
+    b, h, d, guard = 4, 3, 96, 7.0
+    g = torch.Generator(device=card).manual_seed(3900 + length)
+
+    def view(buf):
+        return buf[:, :, 2:2 + h, :d].transpose(1, 2)
+
+    q, k, v = (view(torch.randn(b, length, 8, 128, device=card,
+                                generator=g).to(torch.bfloat16))
+               for _ in range(3))
+    bias = torch.randn(h, length, length, device=card, generator=g)
+    buf = torch.full((b, length, 8, 128), guard, device=card,
+                     dtype=torch.bfloat16)
+    out = view(buf)
+    strides = (ctypes.c_longlong * 12)(*(
+        s for t in (q, k, v, out) for s in cuda_attention._strides(t)))
+    temp = float(np.sqrt(d))
+    cuda_attention._launch_tiled(q, k, v, bias, temp, out, strides, "bf16")
+    torch.cuda.synchronize()
+    ref = plain_sdpa(q, k, v, temp, bias=bias)
+    atol = 2 ** -7 * v.float().abs().max().item()
+    err = (out.float() - ref.float()).abs()
+    assert (err <= BF16_RTOL * ref.float().abs() + atol).all()
+    untouched = torch.ones_like(buf, dtype=torch.bool)
+    untouched[:, :, 2:2 + h, :d] = False
+    assert (buf[untouched] == guard).all()
+
+
+@pytest.mark.parametrize("length", [10, 49, 81, 128])
+def test_bf16_kernel_large_logits(card, length):
+    """q scaled by 30 puts the logits near ±100, past expf's overflow: only
+    the row-max subtraction keeps the softmax finite; no farther from
+    attention in float64 than plain_sdpa (x1.05)."""
+    q, k, v, bias = _bf16_inputs(card, 4100 + length, 4, 8, length, 256,
+                                 True, strided=True)
+    q = (q.float() * 30).to(torch.bfloat16)
+    assert torch.matmul(q.float() / 16.0,
+                        k.float().transpose(-1, -2)).abs().max() > 89
+    _check_bf16(q, k, v, bias, 16.0)
+
+
+def test_bf16_kernel_grid_past_65535_tiles(card):
+    """B·H = 65,600 one-head tiles at L = 49: the persistent loop walks
+    past the 65,535 a grid's y or z dimension would take."""
+    q, k, v, bias = _bf16_inputs(card, 4300, 8200, 8, 49, 32, True,
+                                 strided=True)
+    assert 8200 * 8 > 65535
+    _check_bf16(q, k, v, bias, float(np.sqrt(32)))
 
 
 @pytest.mark.parametrize("with_bias", [False, True])

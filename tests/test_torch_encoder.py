@@ -51,20 +51,19 @@ CONFIGS = {
 
 
 def port_config(jcfg: JaxEncoderConfig, **kw) -> EncoderConfig:
-    """The port's twin of a JAX EncoderConfig (attn_impl takes the port's
-    own values)."""
+    """The port's twin of a JAX EncoderConfig, ``kw`` overriding fields."""
     fields = {f.name: getattr(jcfg, f.name)
               for f in dataclasses.fields(JaxEncoderConfig)}
-    fields["attn_impl"] = "auto"
     fields.update(kw)
     return EncoderConfig(**fields)
 
 
-def jax_and_port_encoder(jcfg: JaxEncoderConfig, x: np.ndarray, seed=0):
+def jax_and_port_encoder(jcfg: JaxEncoderConfig, x: np.ndarray, seed=0,
+                         **kw):
     model = JaxEncoder(jcfg)
     params = jax.tree.map(np.asarray,
                           model.init(jax.random.PRNGKey(seed), x))["params"]
-    port = Encoder(port_config(jcfg), device="cpu")
+    port = Encoder(port_config(jcfg, **kw), device="cpu")
     port.load_state_dict(encoder_state_dict_from_jax(params, jcfg),
                          strict=True)
     return model, params, port.eval()
@@ -81,6 +80,24 @@ def test_encoder_matches_jax(name):
     with torch.no_grad():
         ours = port(torch.from_numpy(x)).numpy()
     assert ours.shape == (3, n_tok + 1, 64)
+    np.testing.assert_allclose(ours, ref, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("impl", ["auto", "xla", "pallas", "plain"])
+def test_every_attn_impl_matches_jax(impl):
+    """C7: the port's encoder takes the JAX package's attn_impl values
+    ("auto", "xla", "pallas") and its own "plain", and matches the JAX
+    encoder built with the same value ("xla" for the port-only "plain";
+    "pallas" runs the JAX kernel in interpret mode on the CPU)."""
+    jcfg = JaxEncoderConfig(attn_impl="xla" if impl == "plain" else impl,
+                            window_depth=3, **SMALL, **LTN)
+    x = np.random.default_rng(13).standard_normal((3, 48, 64),
+                                                  dtype=np.float32)
+    model, params, port = jax_and_port_encoder(jcfg, x, attn_impl=impl)
+    assert port.cfg.attn_impl == impl
+    ref = np.asarray(model.apply({"params": params}, x, deterministic=True))
+    with torch.no_grad():
+        ours = port(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(ours, ref, rtol=2e-4, atol=2e-5)
 
 
@@ -139,7 +156,7 @@ def test_free_head_encoder_exports_and_matches_jax(tmp_path):
                             **{**SMALL, "d_v": 24}, **LTN)
     x = np.random.default_rng(12).standard_normal((3, 48, 64),
                                                   dtype=np.float32)
-    model, params, port = jax_and_port_encoder(jcfg, x)
+    model, params, port = jax_and_port_encoder(jcfg, x, attn_impl="auto")
     ref = np.asarray(model.apply({"params": params}, x, deterministic=True))
     batch = torch.export.Dim("batch", min=1, max=64)
     program = torch.export.export(port, (torch.from_numpy(x),),

@@ -63,15 +63,12 @@ def jax_config(model: str, **kw) -> TrainConfig:
 
 
 def port_config(jcfg):
-    """The port's twin of a JAX config tree (attn_impl takes the port's
-    own values)."""
+    """The port's twin of a JAX config tree."""
     def conv(obj):
         if not dataclasses.is_dataclass(obj):
             return obj
         kw = {f.name: conv(getattr(obj, f.name))
               for f in dataclasses.fields(obj)}
-        if type(obj).__name__ == "EncoderConfig":
-            kw["attn_impl"] = "auto"
         return getattr(pc, type(obj).__name__)(**kw)
 
     return conv(jcfg)
