@@ -181,7 +181,26 @@
    plain copy with its attention in float64: the kernel's eval no farther
    from the float64 one than the plain eval (AUC within that distance +
    1e-4, mean frame-score distance x1.05).  Prints a ``ubnormal`` line.
-17. Prints each phase's wall time, one JSON line of kernels (for each of the
+17. mesh phase, right after the co-teaching phase: an NCCL process group of
+   one process (a free local TCP port) and a (1, 1) DeviceMesh on the card;
+   a Trainer on it at full sht_ltn width over the train phase's split,
+   dropout off, takes 3 f32 steps, two more under the profiler (device
+   busy, device-to-device copies, NCCL kernels), and scores the test split
+   to frame AUC, and one bf16-compute step, each against the same run
+   without a mesh, their epochs interleaved (losses within LOSS_RTOL, AUC
+   within AUC_TOL: at one process anything else is a fault); the f32 tiled
+   kernel launched n_layers times per encoder call, the bf16 one n_layers
+   times in the bf16 step.  Then the
+   CLI ``train --multihost 127.0.0.1:PORT --num-processes 1 --process-id
+   0`` and ``torchrun --nproc-per-node 1 -m lstc_vad_tpu_torch train
+   --multihost auto`` (``python -m torch.distributed.run``), one epoch each
+   from the pack, one after the other: exit 0, the ``multihost:`` log
+   line, the same best AUC.  Then both tiled routes at the tensor-parallel shapes
+   (H/tp = 4 and 2 heads of sht_ltn's 8, L = 49, D = 256, B = 924, bias,
+   strided) against the plain version and float64 at the kernel phase's
+   bars.  Prints the wall, s/step with and without the mesh, the NCCL
+   version and the card.
+18. Prints each phase's wall time, one JSON line of kernels (for each of the
    four kernels, launches summed over every path above, and by path), then,
    as the last line, {"ok": true, "device": {"platform": "gpu", "kind":
    ..., "count": ...}}.
@@ -2162,6 +2181,220 @@ def run_export(cfg, encoder, head, lines, want: dict, root: str, card: str,
     return {**rows, "launches": total, "card": card}
 
 
+TP_HEADS, TP_B = (4, 2), 924  # sht_ltn's 8 heads at tp = 2 and 4
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _mesh_cli(cfg, pack: str, test_txt: str, root: str,
+              device: str) -> dict:
+    """The CLI's train with --multihost COORD:PORT and under torchrun with
+    --multihost auto, one epoch each from the pack, one after the other
+    (each takes a full-width step's memory on the card)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    from lstc_vad_tpu_torch.config import replace
+
+    d = cfg.data
+    widths = cfg_flags(replace(cfg, **{"data.train_txt": "",
+                                       "data.test_mask_dir": ""}))
+    train = ["train", "--preset", cfg_name(cfg), *widths, "--set",
+             f"data.pack_path={pack}", "--set", "eval_train_split=false",
+             "--train-txt", d.train_txt, "--test-txt", test_txt,
+             "--mask-dir", d.test_mask_dir, "--epochs", "1", "--save-dir",
+             os.path.join(root, "mesh_ckpt"), "--device", device]
+    cmds = {
+        "multihost": [sys.executable, "-m", "lstc_vad_tpu_torch", *train,
+                      "--multihost", f"127.0.0.1:{_free_port()}",
+                      "--num-processes", "1", "--process-id", "0"],
+        "torchrun": [sys.executable, "-m", "torch.distributed.run",
+                     "--nproc-per-node", "1", "--master-port",
+                     str(_free_port()), "-m", "lstc_vad_tpu_torch", *train,
+                     "--multihost", "auto"]}
+    env = dict(os.environ, PYTHONPATH=here)
+    out = {}
+    for name, argv in cmds.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=here, env=env, text=True,
+                              capture_output=True, timeout=400)
+        se = proc.stderr
+        if proc.returncode != 0:
+            raise AssertionError(f"mesh cli {name}: exit "
+                                 f"{proc.returncode}: {se[-3000:]}")
+        line = "multihost: process 0/1, global mesh data=1 model=1"
+        best = re.findall(r"best test AUC (\S+)", se)
+        if line not in se or not best:
+            raise AssertionError(f"mesh cli {name}: {se[-3000:]}")
+        out[name] = {"best_test_auc": float(best[-1]),
+                     "wall_s": time.perf_counter() - t0}
+    if out["multihost"]["best_test_auc"] != out["torchrun"]["best_test_auc"]:
+        raise AssertionError(f"mesh cli: the two runs' best AUCs differ: "
+                             f"{out}")
+    return out
+
+
+def trace_ms(path: str) -> dict:
+    """A written trace's device busy time and the device time of its
+    device-to-device copies and of NCCL's kernels, in ms."""
+    from lstc_vad_tpu_torch.utils.profiling import (DEVICE_CATEGORIES,
+                                                    device_busy_ms)
+
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") in DEVICE_CATEGORIES]
+    return {"device_busy_ms": device_busy_ms(path),
+            "d2d_copy_ms": sum(e["dur"] for e in events
+                               if "DtoD" in e["name"]) / 1e3,
+            "nccl_ms": sum(e["dur"] for e in events
+                           if "nccl" in e["name"].lower()) / 1e3}
+
+
+def run_mesh(cfg, store, test_videos, pack: str, test_txt: str, root: str,
+             card: str, device="cuda"):
+    """mesh phase; raises on any failed check.  Returns (its line, the
+    tensor-parallel kernel rows by type)."""
+    import torch
+
+    from lstc_vad_tpu_torch.config import replace
+    from lstc_vad_tpu_torch.ops import cuda_attention
+    from lstc_vad_tpu_torch.parallel import distributed
+    from lstc_vad_tpu_torch.parallel.mesh import make_mesh
+    from lstc_vad_tpu_torch.train.driver import Trainer
+    from lstc_vad_tpu_torch.utils.profiling import TRACE_FILE, trace
+
+    t_start = time.perf_counter()
+    on_card = device == "cuda"
+    n_layers = cfg.encoder.n_layers
+    cfg0 = replace(no_dropout(cfg), metrics_jsonl="",
+                   eval_train_split=False)
+    distributed.initialize_multihost(f"127.0.0.1:{_free_port()}", 1, 0,
+                                     device=device)
+    try:
+        dev = distributed.local_device(device)
+        mesh = make_mesh(1, 1, dev.type)
+
+        def drive(c, epochs: int, evaluate: bool):
+            """The same config on the mesh and without, their epochs
+            interleaved (mesh, plain, plain, mesh, ...) so that both see
+            the same host, then (``evaluate``) two more epochs each,
+            interleaved, under the profiler and the test split's
+            evaluation; the kernels' launches counted on the mesh's."""
+            trainers = {n: Trainer(c, store=store, test_videos=test_videos,
+                                   device=dev,
+                                   mesh=mesh if n == "mesh" else None)
+                        for n in ("mesh", "plain")}
+            runs = {n: [] for n in trainers}
+            launched = {r: 0 for r in cuda_attention.by_route}
+
+            def counted(fn):
+                before = dict(cuda_attention.by_route)
+                out = fn()
+                for r, n in cuda_attention.by_route.items():
+                    launched[r] += n - before[r]
+                return out
+
+            order = ["mesh", "plain", "plain", "mesh"] * epochs
+            for n in order[:2 * epochs]:
+                fn = trainers[n].train_epoch
+                runs[n].append(counted(fn) if n == "mesh" else fn())
+            out = {n: {} for n in trainers}
+            for n in trainers:
+                timed = runs[n][1:] or runs[n]
+                out[n]["s_per_step"] = (sum(r["seconds"] for r in timed)
+                                        / sum(r["batches"] for r in timed))
+            for i, n in enumerate(order[:4] if evaluate else []):
+                # two profiled epochs each, interleaved: their spread is
+                # the yardstick for the difference between the two
+                where = os.path.join(root, f"mesh_trace_{n}_{i}")
+                with trace(where):
+                    runs[n].append(counted(trainers[n].train_epoch)
+                                   if n == "mesh" else
+                                   trainers[n].train_epoch())
+                out[n].setdefault("traced_epochs", []).append({
+                    "wall_ms": 1e3 * runs[n][-1]["seconds"],
+                    **trace_ms(os.path.join(where, TRACE_FILE))})
+            for n, t in trainers.items():
+                row = out[n]
+                row.update(losses=[r["loss"] for r in runs[n]],
+                           epoch_seconds=[r["seconds"] for r in runs[n]],
+                           steps=sum(r["batches"] for r in runs[n]))
+                if evaluate:
+                    t0 = time.perf_counter()
+                    row["auc"] = (counted(lambda: t.evaluate("test"))
+                                  if n == "mesh" else t.evaluate("test"))
+                    row["eval_wall_s"] = time.perf_counter() - t0
+                    row["eval_encoder_calls"] = t.scorer.scorer.n_calls
+            out["mesh"]["by_route"] = launched
+            return out
+
+        # every count at 0 before the mesh path, read after it (drive sums
+        # the launches of the mesh's own calls)
+        cuda_attention.reset_launches()
+        f32 = drive(cfg0, 3, True)
+        cfg_bf16 = replace(cfg0, **{"encoder.compute_dtype": "bfloat16"})
+        bf16 = drive(cfg_bf16, 1, False)
+        nccl = (".".join(map(str, torch.cuda.nccl.version()))
+                if on_card else None)
+    finally:
+        distributed.shutdown()
+    for what, runs in (("f32", f32), ("bf16", bf16)):
+        got, want = runs["mesh"]["losses"], runs["plain"]["losses"]
+        if not np.isfinite(got).all() or len(got) != len(want) or any(
+                abs(a - b) > LOSS_RTOL * abs(b) for a, b in zip(got, want)):
+            raise AssertionError(f"mesh phase, {what}: losses {got} on the "
+                                 f"mesh vs {want} without (rel {LOSS_RTOL})")
+    if not abs(f32["mesh"]["auc"] - f32["plain"]["auc"]) <= AUC_TOL:
+        raise AssertionError(f"mesh phase: AUC {f32['mesh']['auc']} on the "
+                             f"mesh vs {f32['plain']['auc']} without")
+    m, b = f32["mesh"], bf16["mesh"]
+    b["eval_encoder_calls"] = 0
+    want_f32 = n_layers * (m["steps"] + m["eval_encoder_calls"])
+    want_bf16 = n_layers * b["steps"]
+    if on_card and (m["by_route"]["f32"] != want_f32
+                    or sum(m["by_route"].values()) != want_f32
+                    or b["by_route"]["bf16"] != want_bf16
+                    or sum(b["by_route"].values()) != want_bf16):
+        raise AssertionError(
+            f"mesh phase launches: f32 run {m['by_route']} (expected "
+            f"{want_f32} of f32: {n_layers} layers x {m['steps']} steps + "
+            f"{m['eval_encoder_calls']} eval calls), bf16 step "
+            f"{b['by_route']} (expected {want_bf16} of bf16)")
+    if on_card:  # the subprocesses need the card's memory
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+    cli = _mesh_cli(cfg, pack, test_txt, root, device)
+    tp_rows = {"float32": [], "bfloat16": []}
+    if on_card:
+        for dtype in tp_rows:
+            for h in TP_HEADS:
+                row = check_kernel(TP_B, 49, True, dev, strided=True,
+                                   dtype=dtype, h=h)
+                tp_rows[dtype].append(row)
+                print("kernel " + json.dumps(row))
+    return {
+        "wall_s": time.perf_counter() - t_start, "world_size": 1,
+        "mesh": {"data": 1, "model": 1}, "backend": "nccl" if on_card
+        else "gloo", "nccl": nccl,
+        "s_per_step": m["s_per_step"],
+        "plain_s_per_step": f32["plain"]["s_per_step"],
+        "f32": f32, "bf16": bf16, "launches": {
+            "float32": m["by_route"]["f32"],
+            "bfloat16": b["by_route"]["bf16"]},
+        "cli": cli, "tp_kernels": {
+            dtype: [{k: r[k] for k in ("H", "max_abs_err", "ms", "plain_ms",
+                                       "library_ms", "bound_ms",
+                                       "bound_by")} for r in rs]
+            for dtype, rs in tp_rows.items()},
+        "card": card}, tp_rows
+
+
 def run_eval(encoder, head, cfg, items):
     from lstc_vad_tpu_torch.evaluation.drivers import evaluate_ltn
     from lstc_vad_tpu_torch.evaluation.scoring import PartScorer
@@ -2339,7 +2572,6 @@ def main() -> int:
         bf16 = run_bf16(cfg_t, store, test_videos, pack, card)
         print("bf16 " + json.dumps(bf16))
         walls["bf16"] = time.perf_counter() - t0
-        os.remove(pack)
 
         t0 = time.perf_counter()
         long = run_long(cfg_t, store, items, card)
@@ -2356,6 +2588,16 @@ def main() -> int:
                               test_videos, root, card)
         print("coteach " + json.dumps(coteach))
         walls["coteach"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        mesh, tp_rows = run_mesh(cfg_t, store, test_videos, pack,
+                                 os.path.join(root, "cli_test.txt"), root,
+                                 card)
+        for dtype, tp in tp_rows.items():
+            rows[dtype] += tp  # held to the same bars; in max_abs_err
+        print("mesh " + json.dumps(mesh))
+        walls["mesh"] = time.perf_counter() - t0
+        os.remove(pack)
     del store
     torch.cuda.empty_cache()
 
@@ -2406,11 +2648,13 @@ def main() -> int:
         "f32_step": bf16["f32"]["launches"],
         "bf16_trainer_eval": bf16["eval"]["launches"],
         "long_A_eval_no_rewindow": long_a["eval_no_rewindow"]["by_route"][
-            "f32"]}, "bfloat16": {
+            "f32"],
+        "mesh_steps_and_eval": mesh["launches"]["float32"]}, "bfloat16": {
         "bf16_step": bf16["bf16"]["launches_bf16"],
         "bf16_remat_step": bf16["bf16_remat"]["launches_bf16"],
         "cast_sr_step": bf16["cast_sr"]["launches_bf16"],
-        "ubnormal_bf16_eval": ubnormal["launches"]},
+        "ubnormal_bf16_eval": ubnormal["launches"],
+        "mesh_bf16_step": mesh["launches"]["bfloat16"]},
         "float32_stream": {
         "long_A_eval": long_a["eval"]["by_route"]["f32_stream"],
         "long_A_eval_no_rewindow": long_a["eval_no_rewindow"]["by_route"][

@@ -9,7 +9,8 @@ co-teaching, for SHT, UBnormal and UCF (tenCrop stores included), serving,
 AOT export, the ``.lstcpack`` data layer, every CLI subcommand but
 ``benchmark``, and the train-time knobs (bf16 compute, stochastic rounding,
 remat, bf16 wires for training and evaluation batches; f32 by default, and
-evaluation is f32 whatever they say):
+evaluation is f32 whatever they say), and multi-device runs (a data x model
+mesh of processes, one per device):
 
 - ``models``      — encoder (STN/LTN) and Regressor/Classifier heads as
                     ``nn.Module``s, with the reference's state_dict key layout.
@@ -35,9 +36,11 @@ evaluation is f32 whatever they say):
 - ``serving``, ``serving_mp`` — the streaming scorer and its JSONL server;
                     torch-free workers behind one batching backend.
 - ``export``      — ``torch.export`` artifacts of the eval scorer.
-- ``utils``, ``parallel`` — logging, profiling, seeding, the wire-type
-                    lookup; the ``--mesh auto`` factorization (the mesh
-                    itself is ROADMAP A18).
+- ``parallel``    — multi-device runs over ``torch.distributed``: the
+                    (data, model) DeviceMesh, the tensor-parallel rules and
+                    collectives, process-group set-up (``--multihost``,
+                    torchrun) and the gloo rehearsal (``dryrun``).
+- ``utils``       — logging, profiling, seeding, the wire-type lookup.
 - ``cli``         — ``python -m lstc_vad_tpu_torch train | gen-pseudo |
                     evaluate | coteach | export-aot | serve |
                     serve-backend | pack | validate-data | export-torch |

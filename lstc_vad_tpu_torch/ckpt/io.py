@@ -20,6 +20,14 @@ step updates the parameters and Adagrad's sums in place, and then runs
 ``torch.save`` and the promotion in one background thread.  At most one save
 is in flight: the next save, or ``wait_for_saves()``, waits for it first and
 raises its error if its write failed (orbax_io.py:92-160).
+
+On a mesh (a ``TrainState`` laid out on one, or ``mesh=``), every process
+calls ``save_checkpoint``: the shards are gathered over "model" into the
+full reference-layout state, rank 0 writes it, and a barrier follows
+(orbax_io.py:39-89, 129).  ``load_checkpoint`` into a state on a mesh waits
+for rank 0's save in flight and a barrier, then each process reads the whole
+file and keeps its shards.  So a checkpoint written under any mesh loads in
+one process, and the reverse, bit for bit.
 """
 
 from __future__ import annotations
@@ -41,13 +49,41 @@ _executor = ThreadPoolExecutor(max_workers=1,
 _pending: Optional[Future] = None  # the asynchronous save in flight
 
 
-def _payload(obj) -> Dict[str, Any]:
+def _payload(obj, mesh=None) -> Dict[str, Any]:
+    """The checkpoint's content; on a mesh, gathered whole (a
+    collective)."""
     if isinstance(obj, TrainState):
-        return {"encoder": obj.encoder.state_dict(),
-                "head": obj.head.state_dict(),
-                "optimizer": obj.optimizer.state_dict(),
-                "step": obj.step, "seed": obj.seed}
-    return {"encoder": obj["encoder"], "head": obj["head"]}
+        out = {"encoder": obj.encoder.state_dict(),
+               "head": obj.head.state_dict(),
+               "optimizer": obj.optimizer.state_dict(),
+               "step": obj.step, "seed": obj.seed}
+    else:
+        out = {"encoder": obj["encoder"], "head": obj["head"]}
+    if mesh is None:
+        return out
+    from ..parallel.mesh import full_state_dict
+
+    out["encoder"] = full_state_dict(out["encoder"], mesh)
+    out["head"] = full_state_dict(out["head"], mesh)
+    if "optimizer" in out:
+        out["optimizer"] = _optimizer_state(obj.optimizer, out["optimizer"],
+                                            mesh, gather=True)
+    return out
+
+
+def _optimizer_state(optimizer, sd, mesh, gather: bool):
+    """Adagrad's accumulators gathered whole (``gather``) or cut to this
+    process's shards; they mirror the parameters (parallel/mesh.py::
+    state_shardings)."""
+    from ..parallel.mesh import full_tensor, local_shard, state_shardings
+    from ..parallel.tp import mesh_axis
+
+    ax = mesh_axis(mesh, "model")
+    dims = state_shardings(optimizer)
+    fn = full_tensor if gather else local_shard
+    state = {i: {k: (fn(v, dims[i], ax) if k == "sum" else v)
+                 for k, v in s.items()} for i, s in sd["state"].items()}
+    return {**sd, "state": state}
 
 
 def _host_copy(obj):
@@ -92,21 +128,32 @@ def wait_for_saves():
         pending.result()
 
 
-def save_checkpoint(path: str, obj, asynchronous: bool = False):
+def save_checkpoint(path: str, obj, asynchronous: bool = False, mesh=None):
     """Write ``obj`` (a ``TrainState``, or ``{"encoder": state_dict,
     "head": state_dict}``) to ``path`` through ``<path>.next``.
 
     ``asynchronous``: return once the state is copied to host memory; the
     write and the promotion go on in a background thread.  Either way a
-    save in flight is committed first (it may own ``<path>.next``)."""
+    save in flight is committed first (it may own ``<path>.next``).
+
+    ``mesh`` (a state's own by default): ``obj`` holds this process's
+    shards; every process must call, and rank 0 writes the whole."""
     global _pending
+    if mesh is None and isinstance(obj, TrainState):
+        mesh = obj.mesh
     path = os.path.abspath(path)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    wait_for_saves()
-    if not asynchronous:
-        _write(_payload(obj), path)
-        return
-    _pending = _executor.submit(_write, _host_copy(_payload(obj)), path)
+    payload = _payload(obj, mesh)
+    from ..parallel.multihost import barrier, is_writer
+
+    if is_writer(mesh):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        wait_for_saves()
+        if not asynchronous:
+            _write(payload, path)
+        else:
+            _pending = _executor.submit(_write, _host_copy(payload), path)
+    if mesh is not None:
+        barrier()
 
 
 def load_checkpoint(path: str, target: TrainState = None):
@@ -115,6 +162,12 @@ def load_checkpoint(path: str, target: TrainState = None):
     it (modules strictly, optimizer, step and seed) and the state returned;
     a parameter checkpoint loads only the modules.  Without one, the dict."""
     path = os.path.abspath(path)
+    mesh = getattr(target, "mesh", None)
+    if mesh is not None:
+        from ..parallel.multihost import barrier
+
+        wait_for_saves()  # rank 0's save in flight, if any
+        barrier()
     candidates = [p for p in (path, path + ".next", path + ".old")
                   if os.path.isfile(p)] or [path]
     err = None
@@ -133,6 +186,16 @@ def load_checkpoint(path: str, target: TrainState = None):
                         "save)", path, p)
         if target is None:
             return payload
+        if mesh is not None:
+            from ..parallel.mesh import local_state_dict
+
+            payload = {**payload,
+                       "encoder": local_state_dict(payload["encoder"], mesh),
+                       "head": local_state_dict(payload["head"], mesh)}
+            if "optimizer" in payload:
+                payload["optimizer"] = _optimizer_state(
+                    target.optimizer, payload["optimizer"], mesh,
+                    gather=False)
         target.encoder.load_state_dict(payload["encoder"], strict=True)
         target.head.load_state_dict(payload["head"], strict=True)
         if "optimizer" in payload:

@@ -49,11 +49,21 @@ The flags are the JAX CLI's; every subcommand with the common flags takes
 ``--log-dir`` (train writes every config field there; evaluate and
 gen-pseudo log there when given it).  ``pack`` needs h5py, so it runs on a
 machine that has it; every other subcommand reads a pack without h5py.
-``--mesh`` / ``--multihost`` are refused with
-the roadmap item that ports them (A18); ``export-aot --platforms`` is
-refused, since this package's artifact is device-portable.  Everything runs
-on the card unless ``--device cpu`` is given; a ``serve --backend`` worker
-takes no ``--device``: it never touches a device, nor imports torch.
+``export-aot --platforms`` is refused, since this package's artifact is
+device-portable.  Everything runs on the card unless ``--device cpu`` is
+given; a ``serve --backend`` worker takes no ``--device``: it never touches
+a device, nor imports torch.
+
+Multi-device runs, one process per device: ``--mesh auto|DPxTP`` (train,
+evaluate, gen-pseudo, coteach, sweep) lays the run out on a data x model
+mesh over the processes torchrun launched (``auto`` factors their number;
+one process on its own runs a 1x1 mesh); ``--multihost COORD:PORT
+--num-processes N --process-id I`` (train, coteach) joins N processes
+started by hand, or ``--multihost auto`` those of torchrun, and builds the
+global mesh itself.  The card's processes join over NCCL, the CPU's over
+gloo; each takes ``cuda:LOCAL_RANK``; rank 0 writes the files:
+
+    torchrun --nproc-per-node 4 -m lstc_vad_tpu_torch train --mesh 2x2 ...
 ``--ckpt`` reads a ``ckpt/io.py`` file, the parameters alone
 (``train --save-best``) or a full state (``--save-state``); without a
 checkpoint, evaluate, gen-pseudo and serve score random-init weights and say
@@ -150,15 +160,82 @@ def _apply_common(cfg: TrainConfig, args) -> TrainConfig:
     return cfg
 
 
-_UNPORTED = {"mesh": ("--mesh", "a device mesh is ROADMAP A18"),
-             "multihost": ("--multihost", "multi-process runs are ROADMAP "
-                                          "A18")}
+def _mesh_shape(spec: str, n_head: int, world: int):
+    """--mesh 'auto' (the world's processes factored into data x model) or
+    'DPxTP'; the mesh must cover the launched processes."""
+    import re
+
+    from .parallel.mesh import factor_devices
+
+    if spec == "auto":
+        return factor_devices(world, n_head)
+    m = re.fullmatch(r"(\d+)x(\d+)", spec)
+    if not m:
+        raise SystemExit(
+            f"--mesh must be 'auto' or 'DPxTP' (e.g. 2x4), got {spec!r}")
+    dp, tp = int(m.group(1)), int(m.group(2))
+    if tp > 1 and n_head % tp:
+        raise SystemExit(f"--mesh model axis {tp} must divide the head "
+                         f"count {n_head}")
+    if dp * tp != world:
+        raise SystemExit(
+            f"--mesh {dp}x{tp} needs {dp * tp} processes, one per device; "
+            f"this run has {world}: launch them with torchrun "
+            f"(torchrun --nproc-per-node {dp * tp} -m lstc_vad_tpu_torch "
+            "...) or join them with --multihost")
+    return dp, tp
 
 
-def _refuse_unported(args):
-    for name, (flag, why) in _UNPORTED.items():
-        if getattr(args, name, None) is not None:
-            raise SystemExit(f"{flag} is not ported yet: {why}")
+def _mesh_from_args(args, n_head: int, logger=None):
+    """--mesh / --multihost: join the process group, move ``args.device``
+    to this process's device (cuda:LOCAL_RANK), build the (data, model)
+    mesh.  None when neither flag is given."""
+    multihost = getattr(args, "multihost", None)
+    spec = getattr(args, "mesh", None)
+    if not multihost and not spec:
+        return None
+    import torch
+
+    from .device import resolve_device
+    from .parallel import distributed
+    from .parallel.mesh import make_mesh
+
+    device_type = resolve_device(args.device).type
+    if multihost:
+        if spec:
+            raise SystemExit("--multihost builds the global mesh itself "
+                             "(model axis auto-factored per host); drop "
+                             "--mesh")
+        if multihost == "auto":
+            distributed.initialize_multihost(device=args.device)
+        else:
+            if args.num_processes is None or args.process_id is None:
+                raise SystemExit("--multihost COORD:PORT needs "
+                                 "--num-processes and --process-id")
+            distributed.initialize_multihost(
+                multihost, args.num_processes, args.process_id,
+                device=args.device)
+        args.device = str(distributed.local_device(args.device))
+        mesh = distributed.make_global_mesh(n_head, device_type=device_type)
+        if logger is not None:
+            logger.info("multihost: process %d/%d, global mesh data=%d "
+                        "model=%d", torch.distributed.get_rank(),
+                        torch.distributed.get_world_size(), mesh.size(0),
+                        mesh.size(1))
+        return mesh
+    dp, tp = _mesh_shape(spec, n_head, distributed.world_size())
+    distributed.initialize_multihost(device=args.device, alone=True)
+    args.device = str(distributed.local_device(args.device))
+    mesh = make_mesh(dp, tp, device_type)
+    if logger is not None:
+        logger.info("mesh: data=%d model=%d", dp, tp)
+    return mesh
+
+
+def _refuse_mesh_with_artifact(args):
+    if getattr(args, "mesh", None) and args.artifact:
+        raise SystemExit("--mesh shards the live scorer; an AOT artifact is "
+                         "a program of one device — drop one")
 
 
 def _eval_knobs(cfg: TrainConfig) -> TrainConfig:
@@ -197,6 +274,11 @@ def _load_weights(state, args, cmd: str):
 
         enc_sd, head_sd = load_reference_checkpoint(args.encoder_ckpt,
                                                     args.head_ckpt)
+        if state.mesh is not None:
+            from .parallel.mesh import local_state_dict
+
+            enc_sd = local_state_dict(enc_sd, state.mesh)
+            head_sd = local_state_dict(head_sd, state.mesh)
         for name, module, sd in (("encoder", state.encoder, enc_sd),
                                  ("head", state.head, head_sd)):
             res = module.load_state_dict(sd, strict=False)
@@ -215,15 +297,17 @@ def _reject_ckpt_flags_with_artifact(args):
 
 
 def _eval_trainer(cfg: TrainConfig, args, cmd: str, weights: bool = True):
-    """An eval-only Trainer on ``--device`` holding the weights the
-    checkpoint flags name (``weights``; off when an artifact scores), with a
-    log file in ``--log-dir`` when given one."""
+    """An eval-only Trainer on ``--device`` (on ``--mesh``'s mesh when
+    given) holding the weights the checkpoint flags name (``weights``; off
+    when an artifact scores), with a log file in ``--log-dir`` when given
+    one."""
     from .train.driver import Trainer
 
     _check_ckpt_flags(args)
     logger = get_logger(cmd, log_dir=args.log_dir) if args.log_dir else None
+    mesh = _mesh_from_args(args, cfg.encoder.n_head, logger)
     trainer = Trainer(_eval_knobs(cfg), eval_only=True, device=args.device,
-                      logger=logger)
+                      logger=logger, mesh=mesh)
     if weights:
         _load_weights(trainer.state, args, cmd)
     return trainer
@@ -309,7 +393,7 @@ def cmd_evaluate(args):
     from .evaluation.scoring import (ucf_final_eval_scorer,
                                      ucf_final_eval_shapes)
 
-    _refuse_unported(args)
+    _refuse_mesh_with_artifact(args)
     cfg = ucf_final_eval_shapes(_apply_common(preset(args.preset), args))
     cfg = _parse_eval_crop(cfg, args.eval_crop)
     d = cfg.data
@@ -345,6 +429,7 @@ def cmd_evaluate(args):
                                      evaluate_stn, evaluate_ucf_ltn,
                                      evaluate_ucf_per_class,
                                      evaluate_ucf_stn)
+    from .parallel.multihost import is_writer
 
     trainer = _eval_trainer(cfg, args, "evaluate", weights=loaded is None)
     try:
@@ -410,7 +495,7 @@ def cmd_evaluate(args):
         auc, per_video = result
     else:
         auc = result
-    if args.dump_scores:
+    if args.dump_scores and is_writer(trainer.mesh):
         import numpy as np
 
         np.savez(args.dump_scores,
@@ -433,7 +518,7 @@ def cmd_evaluate(args):
 
 
 def cmd_gen_pseudo(args):
-    _refuse_unported(args)
+    _refuse_mesh_with_artifact(args)
     cfg = _apply_common(preset(args.preset), args)
     d = cfg.data
     if args.threshold is None:
@@ -454,6 +539,7 @@ def cmd_gen_pseudo(args):
         _reject_ckpt_flags_with_artifact(args)
         loaded = _load_eval_artifact(args.artifact, cfg, args.device)
     from .data.feature_store import CropView
+    from .parallel.multihost import is_writer
     from .pseudo import (generate_ltn_pseudo_labels,
                          generate_stn_pseudo_labels, pseudo_scorer,
                          save_pseudo_labels)
@@ -478,7 +564,8 @@ def cmd_gen_pseudo(args):
                 dataset=d.dataset, segment_len=d.segment_len)
     finally:
         trainer.store.close()
-    save_pseudo_labels(args.out, pseudo)
+    if is_writer(trainer.mesh):
+        save_pseudo_labels(args.out, pseudo)
     print(f"pseudo labels ({args.kind}, threshold {args.threshold}) "
           f"-> {args.out}")
     return 0
@@ -488,11 +575,11 @@ def cmd_train(args):
     from .ckpt import save_checkpoint
     from .train.driver import Trainer
 
-    _refuse_unported(args)
     cfg = _apply_common(preset(args.preset), args)
     logger = get_logger("train", log_dir=args.log_dir)
     log_config(logger, cfg)
-    trainer = Trainer(cfg, logger=logger, device=args.device)
+    mesh = _mesh_from_args(args, cfg.encoder.n_head, logger)
+    trainer = Trainer(cfg, logger=logger, device=args.device, mesh=mesh)
     if args.resume:
         trainer.restore_state(args.resume)
         logger.info("resumed from %s at step %d", args.resume,
@@ -506,7 +593,7 @@ def cmd_train(args):
         # (spatio_transformer_shanghaitech.py:177-191); the final ones when
         # no evaluation ran
         best = trainer.best_params or trainer.params()
-        save_checkpoint(args.save_best, best)
+        save_checkpoint(args.save_best, best, mesh=mesh)
         gate_auc, gate_ep = ((result.best_train_auc, result.best_train_epoch)
                              if cfg.eval_train_split else
                              (result.best_test_auc, result.best_test_epoch))
@@ -521,14 +608,14 @@ def cmd_train(args):
 def cmd_coteach(args):
     from .pseudo import CoTeachingDriver
 
-    _refuse_unported(args)
     stn_cfg = _apply_common(preset(args.stn_preset), args)
     ltn_cfg = _apply_common(preset(args.ltn_preset), args)
+    logger = get_logger("coteach")
+    mesh = _mesh_from_args(args, stn_cfg.encoder.n_head, logger)
     driver = CoTeachingDriver(stn_cfg, ltn_cfg, args.workdir,
                               stn_threshold=args.stn_threshold,
                               ltn_threshold=args.ltn_threshold,
-                              logger=get_logger("coteach"),
-                              device=args.device)
+                              logger=logger, device=args.device, mesh=mesh)
     driver.run(args.rounds, args.stn_epochs, args.ltn_epochs)
     return 0
 
@@ -546,7 +633,6 @@ def cmd_export_aot(args):
     from .export import save_scorer_artifact
     from .train.state import create_train_state
 
-    _refuse_unported(args)
     cfg = _apply_common(preset(args.preset), args)
     if not args.train_shapes:
         cfg = ucf_final_eval_shapes(cfg)
@@ -606,7 +692,6 @@ def cmd_serve(args):
     process."""
     from .serving import StreamingScorer, serve_jsonl
 
-    _refuse_unported(args)
     cfg = _apply_common(preset(args.preset), args)
     if args.max_streams < 1:
         raise SystemExit(f"--max-streams must be >= 1, got {args.max_streams}")
@@ -671,7 +756,6 @@ def cmd_serve_backend(args):
     from .serving import _fetch
     from .serving_mp import BatchingBackend
 
-    _refuse_unported(args)
     cfg = _apply_common(preset(args.preset), args)
     if args.max_batch < 1:
         raise SystemExit(f"--max-batch must be >= 1, got {args.max_batch}")
@@ -743,7 +827,6 @@ def cmd_validate_data(args):
     inconsistency (data/validate.py); exit 1 when there is one."""
     from .data.validate import validate_data
 
-    _refuse_unported(args)
     cfg = _apply_common(preset(args.preset), args)
     problems, stats = validate_data(cfg)
     print("stats: " + ", ".join(f"{k}={v}" for k, v in sorted(stats.items())))
@@ -764,7 +847,6 @@ def cmd_export_torch(args):
     from .ckpt.torch_export import save_torch_checkpoint
     from .train.state import create_train_state
 
-    _refuse_unported(args)
     cfg = _apply_common(preset(args.preset), args)
     state = create_train_state(cfg, device=args.device)
     load_checkpoint(args.ckpt, state)
@@ -804,8 +886,7 @@ def cmd_info(args):
         state = f"built ({path.name})" if path.exists() else "not built"
         print(f"  {name} ({source}): {state}")
     dp, tp = factor_devices(max(n_cards, 1), 8)
-    print(f"--mesh auto would build data={dp} x model={tp} (a device mesh "
-          "is ROADMAP A18)")
+    print(f"--mesh auto would build data={dp} x model={tp}")
     print(f"presets: {', '.join(sorted(PRESETS))}")
     return 0
 
@@ -826,7 +907,6 @@ def cmd_profile(args):
     from .train.state import create_train_state
     from .utils.profiling import TRACE_FILE, device_busy_ms, trace
 
-    _refuse_unported(args)
     cfg = _apply_common(preset(args.preset), args)
     if args.steps < 1:
         raise SystemExit(f"--steps must be >= 1, got {args.steps}")
@@ -892,9 +972,9 @@ def cmd_sweep(args):
     import itertools
     import json
 
+    from .parallel.multihost import is_writer
     from .train.driver import Trainer
 
-    _refuse_unported(args)
     base = _apply_common(preset(args.preset), args)
     axes = []
     for item in args.grid or []:
@@ -908,12 +988,13 @@ def cmd_sweep(args):
         axes.append((path, [_coerce(base, path, v) for v in values]))
     if not axes:
         raise SystemExit("sweep needs at least one --grid PATH=v1,v2,...")
+    mesh = _mesh_from_args(args, base.encoder.n_head)
     results = []
     combos = list(itertools.product(*(vals for _, vals in axes)))
     for i, combo in enumerate(combos):
         overrides = {path: val for (path, _), val in zip(axes, combo)}
         cfg = replace(base, **overrides)
-        trainer = Trainer(cfg, device=args.device)
+        trainer = Trainer(cfg, device=args.device, mesh=mesh)
         r = trainer.fit(epochs=args.epochs)
         trainer.store.close()
         gate = r.best_train_auc if cfg.eval_train_split else r.best_test_auc
@@ -923,7 +1004,7 @@ def cmd_sweep(args):
         results.append(rec)
         print(f"[sweep {i + 1}/{len(combos)}] {overrides} -> "
               f"test {r.best_test_auc:.4f}")
-        if args.out:
+        if args.out and is_writer(mesh):
             with open(args.out, "a") as f:
                 f.write(json.dumps(rec) + "\n")
     # rank by the criterion the preset's model selection gates on (train
@@ -954,7 +1035,22 @@ def _add_data(p):
                         "optim.lr_encoder=3e-4")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; fails without a card) or 'cpu'")
-    p.add_argument("--mesh", help="not ported yet (ROADMAP A18)")
+
+
+def _add_mesh(p, what: str):
+    p.add_argument("--mesh", help=f"'auto' or 'DPxTP' (e.g. 2x4): {what} "
+                                  "over a data x model mesh of the launched "
+                                  "processes (torchrun, one per device)")
+
+
+def _add_multihost(p):
+    p.add_argument("--multihost", metavar="COORD",
+                   help="multi-process run: coordinator 'host:port' (with "
+                        "--num-processes/--process-id), or 'auto' for "
+                        "torchrun's environment; builds the global mesh "
+                        "over every process (model axis within a host)")
+    p.add_argument("--num-processes", dest="num_processes", type=int)
+    p.add_argument("--process-id", dest="process_id", type=int)
 
 
 def _add_common(p):
@@ -991,7 +1087,8 @@ def main(argv=None):
 
     t = sub.add_parser("train", help="train STN or LTN (preset decides)")
     _add_common(t)
-    t.add_argument("--multihost", help="not ported yet (ROADMAP A18)")
+    _add_mesh(t, "shard the train step")
+    _add_multihost(t)
     t.add_argument("--resume", help="restore the full train state from this "
                                     "checkpoint file")
     t.add_argument("--save-state", dest="save_state",
@@ -1003,6 +1100,7 @@ def main(argv=None):
 
     g = sub.add_parser("gen-pseudo", help="generate pseudo labels")
     _add_common(g)
+    _add_mesh(g, "shard scoring")
     _add_ckpt(g)
     g.add_argument("--kind", choices=("stn", "ltn"), required=True)
     g.add_argument("--threshold", type=float, default=None,
@@ -1012,6 +1110,7 @@ def main(argv=None):
 
     e = sub.add_parser("evaluate", help="frame-AUC evaluation")
     _add_common(e)
+    _add_mesh(e, "shard scoring")
     _add_ckpt(e)
     e.add_argument("--dump-scores", dest="dump_scores",
                    help="write per-video frame scores to this .npz")
@@ -1038,7 +1137,8 @@ def main(argv=None):
     c.add_argument("--stn-threshold", type=float, default=0.9)
     c.add_argument("--ltn-threshold", type=float, default=0.65)
     _add_data(c)
-    c.add_argument("--multihost", help="not ported yet (ROADMAP A18)")
+    _add_mesh(c, "shard every round's step and scoring")
+    _add_multihost(c)
     c.set_defaults(fn=cmd_coteach)
 
     x = sub.add_parser("export-aot",
@@ -1144,6 +1244,7 @@ def main(argv=None):
                         help="grid search: train every combination of "
                              "--grid PATH=v1,v2,... overrides, rank by AUC")
     _add_common(sw)
+    _add_mesh(sw, "shard every run")
     sw.add_argument("--grid", action="append", metavar="PATH=V1,V2,...",
                     help="config axis to sweep (typed like --set); repeat "
                          "for a cartesian product")
@@ -1156,4 +1257,11 @@ def main(argv=None):
     sw.set_defaults(fn=cmd_sweep)
 
     args = p.parse_args(argv)
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    finally:
+        # leave a process group --mesh / --multihost joined (a serve
+        # worker never imported torch, so nothing is imported here)
+        dist = sys.modules.get("lstc_vad_tpu_torch.parallel.distributed")
+        if dist is not None:
+            dist.shutdown()

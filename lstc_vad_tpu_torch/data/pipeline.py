@@ -70,16 +70,23 @@ class Prefetcher:
     _SENTINEL = object()
 
     def __init__(self, iterable, device: torch.device, depth: int = 2,
-                 feature_dtype: torch.dtype = torch.float32):
+                 feature_dtype: torch.dtype = torch.float32, mesh=None):
         """``feature_dtype``: the type batch elements 0 and 2 (the features)
-        travel and arrive in."""
+        travel and arrive in.  ``mesh``: every process builds the whole
+        batch and copies only its rows of the features
+        (parallel/multihost.py::to_global)."""
         self.iterable = iterable
         self.device = torch.device(device)
         self.depth = depth
         self.feature_dtype = feature_dtype
+        self.mesh = mesh
 
     def _put(self, batch):
         """Runs in the worker thread: (tensors, copy event or None)."""
+        if self.mesh is not None:
+            from ..parallel.multihost import to_global
+
+            batch = to_global(batch, self.mesh)
         host = [torch.from_numpy(np.ascontiguousarray(a)) for a in batch]
         dtypes = [self.feature_dtype if i in (0, 2) else h.dtype
                   for i, h in enumerate(host)]

@@ -13,7 +13,9 @@ import torch
 def resolve_device(device="cuda") -> torch.device:
     """``device`` ("cuda", "cuda:N", "cpu" or a ``torch.device``) -> a
     ``torch.device``; raises RuntimeError when CUDA is asked for and no card
-    is visible."""
+    is visible.  In a process of a multi-process run (an initialized
+    process group), "cuda" is this process's card, ``cuda:LOCAL_RANK``
+    (parallel/distributed.py::local_device)."""
     dev = torch.device(device)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}; expected 'cuda' "
@@ -22,4 +24,11 @@ def resolve_device(device="cuda") -> torch.device:
         raise RuntimeError(
             f"device {str(dev)!r} requested but torch sees no CUDA card; "
             "pass device='cpu' (CLI: --device cpu) to run on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            from .parallel.distributed import local_device
+
+            return local_device(dev)
     return dev

@@ -24,6 +24,16 @@ encoder, which computes in f32 (lstc_vad_tpu/evaluation/scoring.py:111-114,
 191-195).  Scores then move by the bf16 rounding of the features, so the
 default stays float32.
 
+On a mesh whose data axis has more than one rank (modules laid out by
+parallel/mesh.py::shard_params, which sets ``encoder.mesh``), every scorer
+is data parallel (lstc_vad_tpu/evaluation/scoring.py:196-217): a batch is
+padded to a multiple of the data axis, each data rank scores its rows
+through the tensor-parallel modules, and the scores are all-gathered, so
+every process gets every score and computes the same AUC.  That dispatch
+runs its collectives at once, in program order, and returns scores already
+fetched: the deferral of ``_Pipeline`` then reorders nothing across
+processes.
+
 Variable-length tails (paths without tail re-windowing) are scored at their
 true length in a separate call — shorter sequences change the relative-PE
 slice, so padding them would NOT be equivalent
@@ -136,6 +146,17 @@ def _scorer_apply(encoder, head, kind: str, l2: bool, x: torch.Tensor
     return out[:, 0]
 
 
+def _data_parallel(mesh):
+    """``mesh`` where its data axis splits a batch, else None: on a data
+    axis of one the plain dispatch scores every row, and the model axis's
+    collectives run inside the forward, in program order."""
+    from ..parallel.tp import mesh_axis
+
+    if mesh is None or mesh_axis(mesh, "data").size == 1:
+        return None
+    return mesh
+
+
 class VideoScorer:
     """Encoder + head apply over [B, T, d] token batches on the encoder's
     device.  ``kind``: 'regressor' -> out[:, 0], 'classifier' -> probs[:, 1]
@@ -153,6 +174,7 @@ class VideoScorer:
         self.l2_normalize = l2_normalize
         self.wire = resolve_dtype(transfer_dtype)
         self.device = next(encoder.parameters()).device
+        self.mesh = _data_parallel(getattr(encoder, "mesh", None))
         self.n_calls = 0
 
     def host_buffer(self, shape):
@@ -183,6 +205,9 @@ class VideoScorer:
             host = torch.from_numpy(np.ascontiguousarray(tokens,
                                                          dtype=np.float32))
         host = host.to(self.wire)  # the cast on the host, before the copy
+        if self.mesh is not None:
+            scores = self._sharded(host)
+            return lambda: scores
         if self.device.type == "cpu":
             with torch.inference_mode():
                 scores = self._forward(host).numpy()
@@ -203,6 +228,23 @@ class VideoScorer:
             return out.numpy().copy()
 
         return resolve
+
+    def _sharded(self, host: torch.Tensor) -> np.ndarray:
+        """This data rank's rows of ``host`` (padded to a multiple of the
+        data axis) scored, every rank's scores gathered: a collective, run
+        now."""
+        from ..parallel.mesh import batch_sharding
+        from ..parallel.multihost import fetch
+        from ..parallel.tp import mesh_axis
+
+        n = host.shape[0]
+        pad = -n % mesh_axis(self.mesh, "data").size
+        if pad:
+            host = torch.cat([host, host.new_zeros((pad,) + host.shape[1:])])
+        rows = host[batch_sharding(self.mesh, host.shape[0])]
+        with torch.inference_mode():
+            scores = self._forward(rows.to(self.device))
+            return fetch(scores, self.mesh)[:n].float().cpu().numpy()
 
     def score_tokens_async(self, tokens: np.ndarray):
         """Dispatch the batch in chunks of at most ``CHUNK`` rows WITHOUT
@@ -232,6 +274,7 @@ class ArtifactVideoScorer(VideoScorer):
         self.l2_normalize = loaded.meta.get("l2_normalize", False)
         self.wire = torch.float32  # an exported program takes f32 tokens
         self.device = loaded.device
+        self.mesh = None
         self.n_calls = 0
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:

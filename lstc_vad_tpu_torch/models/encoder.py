@@ -42,8 +42,10 @@ The JAX package's train-time knobs, f32 and off by default:
   (``use_reentrant=False``) when a gradient is being taken, so its
   activations are recomputed in the backward.  Every dropout mask and SR
   noise draw comes from the default generators, which the checkpoint
-  restores for the recompute: loss and gradients equal the plain path's bit
-  for bit.  The diagnostic outputs (``return_probs``/``return_v``) bypass it.
+  restores for the recompute, and on a mesh the recompute re-enters the
+  step's batch layout (parallel/tp.py::remat_contexts): loss and gradients
+  equal the plain path's bit for bit.  The diagnostic outputs
+  (``return_probs``/``return_v``) bypass it.
 
 The state_dict is the same whatever the knobs, so every checkpoint loads
 into every configuration ``strict=True``.  Evaluation runs the f32 twin
@@ -66,7 +68,8 @@ from torch.utils.checkpoint import checkpoint
 from ..config import EncoderConfig
 from ..device import resolve_device
 from ..ops.attention import sdpa
-from ..ops.sr import sr_linear
+from ..ops.sr import sr_cast, sr_linear
+from ..parallel import tp as tpc
 from . import initializers as init
 from . import rpe
 
@@ -93,18 +96,72 @@ def sr_active(c: EncoderConfig, training: bool) -> bool:
 
 
 def dense(lin: nn.Linear, x: torch.Tensor, dt: torch.dtype,
-          sr: bool) -> torch.Tensor:
+          sr: bool, tp: Optional[tpc.Axis] = None,
+          row: bool = False) -> torch.Tensor:
     """``lin`` applied as the JAX package's Dense of compute type ``dt``:
     the module itself in f32; or x and the weight cast to bf16, the product
     rounded to bf16, then the bf16 bias added (a second rounding, as flax
     adds the bias after the dot); or, on the SR arm, stochastically rounded
-    casts."""
+    casts.  ``tp``: ``lin`` is split over that model axis
+    (``sharded_dense``)."""
+    if tp is not None:
+        return sharded_dense(lin, x, dt, sr, tp, row)
     if sr:
         return sr_linear(x, lin.weight, lin.bias)
     if dt == torch.float32:
         return lin(x)
     y = F.linear(x.to(dt), lin.weight.to(dt))
     return y if lin.bias is None else y + lin.bias.to(dt)
+
+
+def _sr(t: torch.Tensor, tp: tpc.Axis, split: Optional[int],
+        rows: bool) -> torch.Tensor:
+    """``sr_cast(t)`` with the noise drawn at ``t``'s global shape
+    (parallel/tp.py): ``split`` is the dim split over ``tp``, ``rows``
+    whether its leading axis is this rank's batch rows.  A tensor that is
+    not f32 draws none, as ``sr_cast`` draws none for it."""
+    if t.dtype != torch.float32:
+        return sr_cast(t)
+    return sr_cast(t, tpc.draw_global(
+        t.shape, lambda full: torch.randint(  # as ops/sr.py::sr_noise draws
+            0, 1 << 16, full, dtype=torch.int32, device=t.device),
+        cols=None if split is None else tp, col_dim=split or 0, rows=rows))
+
+
+def sharded_dense(lin: nn.Linear, x: torch.Tensor, dt: torch.dtype,
+                  sr: bool, tp: tpc.Axis, row: bool) -> torch.Tensor:
+    """``dense`` of a Linear split over the model axis ``tp``
+    (parallel/mesh.py's rules).  Column-parallel (``row`` False): x is
+    replicated (the caller passed it through ``copy_to_model``) and the
+    outputs, bias included, are this rank's.  Row-parallel: x holds this
+    rank's inputs; the partial products are summed over the model axis and
+    then the bias is added, once.  On bf16 each partial product is rounded
+    to bf16 before the sum.  SR noise is drawn at the global shapes and
+    sliced, in the unsharded order (x, weight, bias).  On a model axis of
+    one rank a row-parallel Linear is whole: it runs as a column-parallel
+    one, its bias inside the product, as the unsharded module runs."""
+    row = row and tp.size > 1
+    w_dim = 1 if row else 0
+    bias = lin.bias
+    if sr:
+        y = F.linear(_sr(x, tp, x.dim() - 1 if row else None, True),
+                     _sr(lin.weight, tp, w_dim, False))
+        if bias is not None and not row:
+            y = y + _sr(bias, tp, 0, False)
+    elif dt == torch.float32:
+        y = F.linear(x, lin.weight, None if row else bias)
+    else:
+        y = F.linear(x.to(dt), lin.weight.to(dt))
+        if bias is not None and not row:
+            y = y + bias.to(dt)
+    if not row:
+        return y
+    y = tpc.reduce_from_model(y, tp)
+    if bias is None:
+        return y
+    if sr:
+        return y + _sr(bias, tp, None, False)
+    return y + bias.to(y.dtype)
 
 
 def layer_norm(ln: nn.LayerNorm, x: torch.Tensor,
@@ -156,6 +213,7 @@ class MultiHeadAttention(nn.Module):
         self.fc_dropout = nn.Dropout(c.fc_dropout)
         self.layer_norm = nn.LayerNorm(c.d_model, eps=c.layer_norm_eps,
                                        device=device)
+        self.tp = None  # the model axis, when laid out on a mesh
         self.relative_position_bias_table = None
         if c.relative_pe or c.relative_pe_2d:
             if c.relative_pe:
@@ -203,8 +261,10 @@ class MultiHeadAttention(nn.Module):
             raise ValueError(
                 f"relative_pe_2d needs exactly window_size^2="
                 f"{index.shape[0]} tokens, got {n_tok}")
-        gathered = self.relative_position_bias_table[index.reshape(-1)]
-        gathered = gathered.reshape(n_tok, n_tok, c.n_head).permute(2, 0, 1)
+        table = self.relative_position_bias_table  # this rank's heads
+        gathered = table[index.reshape(-1)]
+        gathered = gathered.reshape(n_tok, n_tok, table.shape[1]).permute(
+            2, 0, 1)
         return nn.functional.pad(gathered, (1, 0, 1, 0)).contiguous()
 
     def forward(self, x, mask=None, return_probs: bool = False,
@@ -213,30 +273,42 @@ class MultiHeadAttention(nn.Module):
         return_attn_v plumbing: the attention map [B, H, L, L] and the V
         tensor [B, H, L, d_v] come back beside the output."""
         c = self.cfg
+        tp = self.tp
         b, length, _ = x.shape
-        h, dk, dv = c.n_head, c.d_k, c.d_v
+        dk, dv = c.d_k, c.d_v
+        h = self.w_qs.weight.shape[0] // dk  # this rank's heads
         dt = compute_dtype(c)
         sr = sr_active(c, self.training)
         if not sr:
             # the SR arm keeps the activations between its casts as they are
             x = x.to(dt)
         residual = x
+        xin = x if tp is None else tpc.copy_to_model(x, tp)
         # [B, H, L, D] views of the projections, no copies: the kernel reads
         # them strided and writes out as a view of a [B, L, H, D] buffer, so
         # the reshape below is a view too
-        q = dense(self.w_qs, x, dt, sr).view(b, length, h, dk).transpose(1, 2)
-        k = dense(self.w_ks, x, dt, sr).view(b, length, h, dk).transpose(1, 2)
-        v = dense(self.w_vs, x, dt, sr).view(b, length, h, dv).transpose(1, 2)
+        q = dense(self.w_qs, xin, dt, sr, tp).view(b, length, h, dk)
+        k = dense(self.w_ks, xin, dt, sr, tp).view(b, length, h, dk)
+        v = dense(self.w_vs, xin, dt, sr, tp).view(b, length, h, dv)
+        q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         dropout_p = c.attn_dropout if self.training else 0.0
+        keep = None
+        if dropout_p > 0.0 and tp is not None and tpc.sharded(tp):
+            # drawn where plain_sdpa would draw it, at the global shape
+            keep = tpc.dropout_noise((b, h, length, length), dropout_p,
+                                     torch.float32, x.device, cols=tp,
+                                     col_dim=1)
         out = sdpa(q, k, v, temperature=math.sqrt(dk),
                    bias=self.relative_bias(length), mask=mask,
                    dropout_p=dropout_p, impl=c.attn_impl,
-                   return_probs=return_probs or return_v)
+                   return_probs=return_probs or return_v, dropout_mask=keep)
         probs = None
         if return_probs or return_v:
             out, probs = out
         out = out.transpose(1, 2).reshape(b, length, h * dv)
-        out = self.fc_dropout(dense(self.fc, out, dt, sr)) + residual
+        out = tpc.dropout(self.fc_dropout,
+                          dense(self.fc, out, dt, sr, tp, row=True)) \
+            + residual
         if c.mha_layernorm:
             out = layer_norm(self.layer_norm, out,
                              torch.float32 if sr else dt)
@@ -257,6 +329,7 @@ class FeedForward(nn.Module):
         self.dropout = nn.Dropout(c.ffn_dropout)
         self.layer_norm = nn.LayerNorm(c.d_model, eps=c.layer_norm_eps,
                                        device=device)
+        self.tp = None  # the model axis, when laid out on a mesh
 
     def reset_parameters(self, generator: torch.Generator):
         init.torch_linear_(self.w_1, generator, self.cfg.weight_init)
@@ -267,9 +340,13 @@ class FeedForward(nn.Module):
         c = self.cfg
         dt = compute_dtype(c)
         sr = sr_active(c, self.training)
+        tp = self.tp
         residual = x
-        x = dense(self.w_2, torch.relu(dense(self.w_1, x, dt, sr)), dt, sr)
-        x = self.dropout(x) + residual
+        if tp is not None:
+            x = tpc.copy_to_model(x, tp)
+        x = dense(self.w_2, torch.relu(dense(self.w_1, x, dt, sr, tp)), dt,
+                  sr, tp, row=True)
+        x = tpc.dropout(self.dropout, x) + residual
         if c.ffn_layernorm:
             x = layer_norm(self.layer_norm, x, torch.float32 if sr else dt)
         return x
@@ -357,7 +434,8 @@ class Encoder(nn.Module):
             cls = x.mean(dim=1, keepdim=True)
         x = torch.cat([cls, x], dim=1)
         if self.position_enc is not None:
-            x = self.position_dropout(x + self.position_enc[:, :x.shape[1]])
+            x = tpc.dropout(self.position_dropout,
+                            x + self.position_enc[:, :x.shape[1]])
         probs_all, v_all = [], []
         # remat only where a gradient is taken: without one there is nothing
         # to recompute, and the math is the same either way
@@ -365,7 +443,8 @@ class Encoder(nn.Module):
                  and not (return_probs or return_v))
         for layer in self.layer_stack:
             if remat:
-                x = checkpoint(layer, x, mask, use_reentrant=False)
+                x = checkpoint(layer, x, mask, use_reentrant=False,
+                               context_fn=tpc.remat_contexts)
                 continue
             x = layer(x, mask, return_probs=return_probs, return_v=return_v)
             if return_v:

@@ -18,7 +18,9 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..parallel import tp as tpc
 from . import initializers as init
+from .encoder import sharded_dense
 
 
 def _check_width(x: torch.Tensor, d_model: int):
@@ -51,6 +53,7 @@ class _Head(nn.Module):
                        else (2, nn.Softmax(dim=-1)))
         setattr(self, self.kind,
                 _mlp(d_model, hidden_dim, n_out, dropout, last, device))
+        self.tp = None  # the model axis, when laid out on a mesh
 
     def reset_parameters(self, generator: torch.Generator):
         for i in (0, 3, 5):
@@ -63,7 +66,18 @@ class _Head(nn.Module):
         it, as flax promotes a bf16 encoder output with the head's f32
         parameters (lstc_vad_tpu/models/heads.py, Dense with dtype=None)."""
         _check_width(x, self.d_model)
-        return getattr(self, self.kind)(x.float())
+        mlp = getattr(self, self.kind)
+        tp = self.tp
+        if tp is None:
+            return mlp(x.float())
+        # on a mesh: the first Linear column-parallel, the second
+        # row-parallel, the last replicated
+        f32 = torch.float32
+        x = torch.relu(sharded_dense(mlp[0], tpc.copy_to_model(x.float(), tp),
+                                     f32, False, tp, row=False))
+        x = sharded_dense(mlp[3], tpc.dropout(mlp[2], x, cols=tp), f32,
+                          False, tp, row=True)
+        return mlp[6](mlp[5](tpc.dropout(mlp[4], x)))
 
 
 class Regressor(_Head):

@@ -56,10 +56,13 @@ def plain_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                bias: Optional[torch.Tensor] = None,
                mask: Optional[torch.Tensor] = None,
                dropout_p: float = 0.0,
-               return_probs: bool = False):
+               return_probs: bool = False,
+               dropout_mask: Optional[torch.Tensor] = None):
     """The plain version: f32 scores, -1e9 mask fill, bias add, f32
     softmax, optional dropout (active when ``dropout_p > 0``), optional
-    probabilities.
+    probabilities.  ``dropout_mask``: the scaled keep mask to multiply the
+    probabilities by, drawn by the caller (a sharded step draws it at the
+    global shape, parallel/tp.py), in place of a fresh draw.
 
     On bf16 q, k, v (``encoder.compute_dtype="bfloat16"``) it computes what
     lstc_vad_tpu/ops/attention.py::_xla_sdpa does with
@@ -77,7 +80,8 @@ def plain_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         attn = attn + bias.to(attn.dtype)
     probs = torch.softmax(attn, dim=-1)
     if dropout_p > 0.0:
-        probs = F.dropout(probs, dropout_p, training=True)
+        probs = (probs * dropout_mask if dropout_mask is not None
+                 else F.dropout(probs, dropout_p, training=True))
     out = torch.matmul(_at_least_f32(probs.to(v.dtype)),
                        _at_least_f32(v)).to(v.dtype)
     if return_probs:
@@ -91,7 +95,8 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          mask: Optional[torch.Tensor] = None,
          dropout_p: float = 0.0,
          impl: str = "auto",
-         return_probs: bool = False):
+         return_probs: bool = False,
+         dropout_mask: Optional[torch.Tensor] = None):
     """Dispatching SDPA.  ``impl``:
 
     - "auto", or the JAX package's "pallas" (its kernel path): the CUDA
@@ -103,8 +108,9 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     A mask, active dropout or ``return_probs`` takes the plain path: the
     kernel computes none of them, as JAX's "pallas" takes its XLA path
-    there.  That choice is made from the arguments, never by catching a
-    kernel failure."""
+    there.  ``dropout_mask`` goes with the dropout to the plain path
+    (``plain_sdpa``).  That choice is made from the arguments, never by
+    catching a kernel failure."""
     if impl not in IMPLS:
         # a typo'd config knob must not silently run the plain path while
         # the user believes they are exercising the kernel
@@ -113,7 +119,8 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if impl not in KERNEL_IMPLS or mask is not None or dropout_p > 0.0 \
             or return_probs:
         return plain_sdpa(q, k, v, temperature, bias=bias, mask=mask,
-                          dropout_p=dropout_p, return_probs=return_probs)
+                          dropout_p=dropout_p, return_probs=return_probs,
+                          dropout_mask=dropout_mask)
     from .cuda_attention import attention
 
     return attention(q, k, v, bias, temperature)

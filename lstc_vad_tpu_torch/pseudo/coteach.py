@@ -11,8 +11,10 @@ Artifacts land in ``workdir``: stn_pseudo.npy / ltn_pseudo.npy (np.save dict
 format, loadable by the reference's datasets and by the JAX package).
 Pseudo labels are scored by a separate eval copy of each round's best
 weights (``Trainer.scoring_modules``), so a round's Trainer keeps its own
-final weights.  Single-process: a multi-process barrier before the next
-round reads an artifact waits for ROADMAP A18.
+final weights.  On a mesh (``mesh=``) every round's Trainer is laid out on
+it and scores data parallel; rank 0 writes each artifact, and every process
+waits at a barrier before the next round reads it (JAX pseudo/coteach.py:
+159-174).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 from ..config import TrainConfig, replace
 from ..data.feature_store import CropView
 from ..device import resolve_device
+from ..parallel.multihost import barrier, is_writer
 from ..train.driver import Trainer
 from .generator import (generate_ltn_pseudo_labels, generate_stn_pseudo_labels,
                         pseudo_scorer, save_pseudo_labels)
@@ -47,8 +50,9 @@ class CoTeachingDriver:
     def __init__(self, stn_cfg: TrainConfig, ltn_cfg: TrainConfig,
                  workdir: str, stn_threshold: float = 0.9,
                  ltn_threshold: float = 0.65, logger=None, device="cuda",
-                 store=None, test_videos=None):
+                 store=None, test_videos=None, mesh=None):
         self.stn_cfg = stn_cfg
+        self.mesh = mesh
         self.ltn_cfg = ltn_cfg
         self.device = resolve_device(device)
         self.workdir = workdir
@@ -79,7 +83,7 @@ class CoTeachingDriver:
         tv_sig = store_sig + (d.dataset, d.test_txt, d.test_mask_dir,
                               d.test_mask_h5)
         trainer = Trainer(
-            cfg, logger=self.logger, device=self.device,
+            cfg, logger=self.logger, device=self.device, mesh=self.mesh,
             store=self._store if self._store_sig in (None, store_sig)
             else None,
             test_videos=(self._test_videos if self._tv_sig in (None, tv_sig)
@@ -131,6 +135,14 @@ class CoTeachingDriver:
             return CropView(trainer.store, d.eval_crop)
         return trainer.store
 
+    def _save(self, path: str, pseudo: Dict[str, np.ndarray]):
+        """Write the artifact (rank 0 on a mesh), then, on a mesh, wait
+        until every process may read it."""
+        if is_writer(self.mesh):
+            save_pseudo_labels(path, pseudo)
+        if self.mesh is not None:
+            barrier()
+
     def generate_stn_pseudo(self, trainer: Trainer
                             ) -> Tuple[Dict[str, np.ndarray], int]:
         """STN pseudo labels from the round's best weights, saved to
@@ -140,7 +152,7 @@ class CoTeachingDriver:
         pseudo = generate_stn_pseudo_labels(scorer, store,
                                             trainer.train_records,
                                             self.stn_threshold)
-        save_pseudo_labels(self.stn_pseudo_path, pseudo)
+        self._save(self.stn_pseudo_path, pseudo)
         self.logger.info("STN pseudo labels -> %s", self.stn_pseudo_path)
         return pseudo, scorer.scorer.n_calls
 
@@ -154,7 +166,7 @@ class CoTeachingDriver:
         pseudo = generate_ltn_pseudo_labels(
             scorer, store, trainer.train_records, self.ltn_threshold,
             dataset=d.dataset, segment_len=d.segment_len)
-        save_pseudo_labels(self.ltn_pseudo_path, pseudo)
+        self._save(self.ltn_pseudo_path, pseudo)
         self.logger.info("LTN pseudo labels -> %s", self.ltn_pseudo_path)
         return pseudo, scorer.scorer.n_calls
 

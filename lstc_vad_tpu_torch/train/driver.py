@@ -12,7 +12,14 @@ SHT, UBnormal and UCF are ported, tenCrop stores included (a crop drawn per
 training pair or video; evaluation at the fixed ``data.eval_crop``).
 Features come from ``data.pack_path`` (a ``.lstcpack``, data/packed.py:
 batches through its native gather, no h5py) when it is set, else from the
-HDF5 file ``data.h5_path``.  Not yet: a device mesh (ROADMAP A18).
+HDF5 file ``data.h5_path``.
+
+On a mesh (``mesh=``, parallel/mesh.py; JAX train/driver.py:49-64, 123-138,
+287-290, 325-332) every process of the run holds the same Trainer: the
+state laid out by the tensor-parallel rules, each batch built whole from the
+same seeds and cut to the process's rows, the scorers data parallel, and
+the metrics JSONL, the AUC-gated checkpoints and the saves written by rank
+0 alone, behind barriers.
 
 Wire types: ``data.transfer_dtype="bfloat16"`` casts each batch's features on
 the host before the copy (the Prefetcher), so they enter the encoder as
@@ -51,6 +58,7 @@ from ..evaluation.scoring import (ClipScorer, PartScorer, UCFBinnedScorer,
                                   UCFClipBinScorer)
 from ..models import build
 from ..models.encoder import eval_config, eval_twin
+from ..parallel.multihost import is_writer
 from ..utils.misc import resolve_dtype
 from .state import create_train_state
 from .steps import make_train_step
@@ -81,10 +89,12 @@ class Trainer:
     gen-pseudo paths)."""
 
     def __init__(self, cfg: TrainConfig, logger=None, store=None,
-                 test_videos=None, device="cuda", eval_only: bool = False):
+                 test_videos=None, device="cuda", eval_only: bool = False,
+                 mesh=None):
         self.cfg = cfg
         self.logger = logger or logging.getLogger("lstc_vad_tpu_torch")
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.best_params = None  # snapshot at the best gate AUC (fit)
         self.eval_seconds = 0.0  # host wall time spent in evaluate()
         d = cfg.data
@@ -139,7 +149,7 @@ class Trainer:
                 mask_h5=d.test_mask_h5,
                 cache=d.eager and not eval_only) if d.test_txt else []
 
-        self.state = create_train_state(cfg, self.device)
+        self.state = create_train_state(cfg, self.device, mesh=mesh)
         self.step_fn = None if eval_only else make_train_step(cfg)
         # the f32 twin of the train encoder, sharing its weights
         self.eval_encoder = eval_twin(self.state.encoder)
@@ -178,6 +188,11 @@ class Trainer:
         encoder, head = build(dataclasses.replace(
             cfg, encoder=eval_config(cfg.encoder)), device=self.device,
             seed=cfg.seed)
+        if self.mesh is not None:
+            from ..parallel.mesh import shard_params
+
+            shard_params(encoder, self.mesh)
+            shard_params(head, self.mesh)
         encoder.load_state_dict(params["encoder"], strict=True)
         head.load_state_dict(params["head"], strict=True)
         return encoder, head
@@ -265,7 +280,8 @@ class Trainer:
         d = self.cfg.data
         batches = Prefetcher(
             BatchIterator(self.dataset, d.batch_size, drop_last=True),
-            self.device, feature_dtype=resolve_dtype(d.transfer_dtype))
+            self.device, feature_dtype=resolve_dtype(d.transfer_dtype),
+            mesh=self.mesh)
         snippets_per_batch = 2 * d.batch_size * d.part_num * d.part_len
         metrics = {}
         log_every = self.cfg.log_every_step
@@ -293,9 +309,10 @@ class Trainer:
 
     def _emit_metrics(self, record: Dict):
         """One JSON line per record in ``cfg.metrics_jsonl`` (off when
-        empty)."""
+        empty); on a mesh, rank 0's (every process holds the same
+        records)."""
         path = self.cfg.metrics_jsonl
-        if not path:
+        if not path or not is_writer(self.mesh):
             return
         with open(path, "a") as f:
             f.write(json.dumps({"ts": round(time.time(), 3), **record}) + "\n")
@@ -303,7 +320,8 @@ class Trainer:
     # ------------------------------------------------------------ ckpt
 
     def params(self) -> Dict[str, Dict]:
-        """The encoder's and head's state_dicts (live tensors)."""
+        """The encoder's and head's state_dicts (live tensors; on a mesh,
+        this process's shards)."""
         return {"encoder": self.state.encoder.state_dict(),
                 "head": self.state.head.state_dict()}
 
@@ -372,7 +390,7 @@ class Trainer:
                         cfg.model_save_dir,
                         f"{cfg.data.dataset}_{cfg.model}_{gate:.4f}")
                     self.logger.info("saving model to %s", path)
-                    save_checkpoint(path, self.params())
+                    save_checkpoint(path, self.params(), mesh=self.mesh)
                 self.logger.info(
                     "[epoch %d] test AUC %.4f (best %.4f @%d) "
                     "train AUC %.4f (best %.4f @%d)", epoch, auc_test,

@@ -22,6 +22,17 @@ Every stochastic rounding noise draw of a ``cast_sr`` step (ops/sr.py) comes
 from the same default generators, which is also what lets
 ``encoder.remat`` recompute a layer with the same masks and noise.
 
+On a mesh (``state.mesh``) a step takes this process's rows of the
+features and the whole batch's labels (parallel/multihost.py::to_global).
+Its forward runs the tensor-parallel modules; the head's outputs of every
+data rank are gathered, in the global batch's order, before the loss, which
+is then the unsharded step's function of the whole batch on every process
+(the MIL hinge pairs every normal video with every abnormal one); the
+gradients, partial sums over each rank's rows, are summed over "data"; and
+every dropout mask is drawn at its global shape from the same generators and
+sliced (parallel/tp.py), so the step is the unsharded step whatever the
+partition.
+
 Attention in a step dispatches as everywhere (ops/attention.py::sdpa): with
 attention dropout on (0.1-0.2 at the presets) it takes the plain path, as
 the JAX package does; with it off, the Hopper kernel of the compute type
@@ -41,6 +52,7 @@ from ..config import TrainConfig
 from ..objectives.losses import (build_clip_labels, coteach_stn_mil_loss,
                                  ltn_mil_loss, soft_cross_entropy_on_probs,
                                  stn_mil_loss, weighted_bce)
+from ..parallel import tp as tpc
 from .optim import clip_gradients
 from .state import TrainState
 
@@ -80,8 +92,15 @@ def _as_tensor(x, device: torch.device) -> torch.Tensor:
                            torch.float32, device=device)
 
 
+def _data_axis(state: TrainState):
+    return None if state.mesh is None else tpc.mesh_axis(state.mesh, "data")
+
+
 def _scores(state: TrainState, x: torch.Tensor) -> torch.Tensor:
-    return state.head(state.encoder(x)[:, 0, :])
+    """The head's outputs of the whole batch: on a mesh, every data rank's
+    rows (normal videos, then abnormal), gathered in the global order."""
+    return tpc.gather_batch(state.head(state.encoder(x)[:, 0, :]),
+                            _data_axis(state), blocks=2)
 
 
 class TrainStep:
@@ -106,16 +125,31 @@ class TrainStep:
         state.encoder.train()
         state.head.train()
         state.optimizer.zero_grad(set_to_none=True)
-        with step_rng(state.seed, state.step, dev):
+        data = _data_axis(state)
+        layout = None
+        if data is not None:
+            if norm_feats.shape[0] * data.size != norm_labs.shape[0]:
+                raise ValueError(
+                    f"on a mesh a step takes this process's rows of the "
+                    f"features ({norm_feats.shape[0]} of a data axis of "
+                    f"{data.size}) and the whole batch's labels "
+                    f"({norm_labs.shape[0]}): parallel/multihost.py::"
+                    "to_global")
+            layout = tpc.BatchLayout(data.rank, data.size, blocks=2)
+        with step_rng(state.seed, state.step, dev), tpc.batch_layout(layout):
             loss, metrics = self.loss_fn(state, norm_feats, norm_labs,
                                          abnorm_feats, abnorm_labs)
         loss.backward()
+        if data is not None:
+            tpc.all_reduce_grads(
+                [p for g in state.optimizer.param_groups
+                 for p in g["params"]], data)
         return {k: v.detach() for k, v in metrics.items()}
 
     def __call__(self, state: TrainState, *batch) -> Tuple[TrainState,
                                                             Metrics]:
         metrics = self.grads(state, *batch)
-        clip_gradients(self.cfg.optim, state.optimizer)
+        clip_gradients(self.cfg.optim, state.optimizer, state.mesh)
         state.optimizer.step()
         state.step += 1
         return state, metrics
@@ -131,7 +165,7 @@ def make_stn_train_step(cfg: TrainConfig) -> TrainStep:
         feats = torch.cat([norm_feats, abnorm_feats])
         b2 = feats.shape[0]
         scores = _scores(state, feats.reshape(b2 * pn * pl, n_patch, d))
-        loss, err, spar = stn_mil_loss(scores.reshape(b2, pn * pl), pn, pl,
+        loss, err, spar = stn_mil_loss(scores.reshape(-1, pn * pl), pn, pl,
                                        lam1)
         return loss, {"loss": loss, "err": err, "l1": spar}
 
@@ -150,15 +184,15 @@ def make_stn_bce_train_step(cfg: TrainConfig) -> TrainStep:
     flat_sparsity = cfg.data.dataset != "UCF"
 
     def loss_fn(state, norm_feats, norm_labs, abnorm_feats, abnorm_labs):
-        clip_labs = build_clip_labels(norm_feats.shape[0], pn, pl,
+        clip_labs = build_clip_labels(norm_labs.shape[0], pn, pl,
                                       abnorm_labs)
         feats = torch.cat([norm_feats, abnorm_feats])
         b2 = feats.shape[0]
         scores = _scores(state, feats.reshape(b2 * pn * pl, n_patch, d))
-        scores = scores.reshape(b2, pn * pl)
+        scores = scores.reshape(-1, pn * pl)
         mil, err, spar = coteach_stn_mil_loss(scores, pn, pl, lc.lambda_1,
                                               flat_sparsity=flat_sparsity)
-        bce = weighted_bce(scores.reshape(b2, pn, pl).mean(-1), clip_labs,
+        bce = weighted_bce(scores.reshape(-1, pn, pl).mean(-1), clip_labs,
                            lc.lambda_normal, lc.lambda_abnormal)
         loss = lc.lambda_bce * bce + mil
         return loss, {"loss": loss, "mil": mil, "bce": bce, "err": err,
@@ -177,18 +211,18 @@ def make_ltn_train_step(cfg: TrainConfig) -> TrainStep:
     lc = cfg.loss
 
     def loss_fn(state, norm_feats, norm_labs, abnorm_feats, abnorm_labs):
-        clip_labs = build_clip_labels(norm_feats.shape[0], pn, pl,
+        clip_labs = build_clip_labels(norm_labs.shape[0], pn, pl,
                                       abnorm_labs)
         feats = torch.cat([norm_feats, abnorm_feats])
         b2 = feats.shape[0]
         probs = _scores(state, feats.reshape(b2 * pn, pl * n_patch, d))
-        probs = probs.reshape(b2 * pn, 2)
+        probs = probs.reshape(-1, 2)
         mil, err, spar = ltn_mil_loss(probs[:, 1], pn, lc.lambda_1)
         if lc.temporal_only:
             ce = torch.zeros((), device=probs.device)
         else:
             ce = soft_cross_entropy_on_probs(probs,
-                                             clip_labs.reshape(b2 * pn, 2))
+                                             clip_labs.reshape(-1, 2))
         loss = lc.lambda_mil * mil + lc.lambda_ce * ce
         return loss, {"loss": loss, "mil": mil, "ce": ce, "err": err,
                       "l1": spar}

@@ -269,11 +269,16 @@ def test_ucf_evaluate_per_class_matches_jax(ucf_ckpt):
     (["export-aot", "--preset", "sht_ltn", "--ckpt", "c", "--out", "a",
       "--platforms", "tpu,cpu"], "device-portable"),
     (["serve", "--preset", "sht_ltn", "--backend", "s"], "hold no device"),
-    (["train", "--preset", "sht_ltn", "--mesh", "2x1"], "A18"),
-    (["serve-backend", "--preset", "sht_ltn", "--socket", "s", "--mesh",
-      "2x1"], "A18"),
-    (["coteach", "--stn-preset", "sht_stn", "--ltn-preset", "sht_ltn",
-      "--workdir", "w", "--multihost", "auto"], "A18"),
+    # the ids of the three cases below and of the second --grid case are
+    # kept from when they checked the flags' refusal as unported
+    pytest.param(["train", "--preset", "sht_ltn", "--mesh", "2x1"],
+                 "torchrun", id="argv2-A18"),
+    pytest.param(["evaluate", "--preset", "sht_ltn", "--mesh", "1x1",
+                  "--artifact", "a"], "AOT artifact", id="argv3-A18"),
+    pytest.param(["coteach", "--stn-preset", "sht_stn", "--ltn-preset",
+                  "sht_ltn", "--workdir", "w", "--multihost",
+                  "127.0.0.1:1"], "--num-processes and --process-id",
+                 id="argv4-A18"),
     (["evaluate", "--preset", "sht_ltn", "--eval-crop", "mean"],
      "needs a tenCrop store"),
     (["evaluate", "--preset", "sht_ltn", "--eval-crop", "10"], "0-9"),
@@ -285,8 +290,9 @@ def test_ucf_evaluate_per_class_matches_jax(ucf_ckpt):
      "does not match"),
     (["evaluate", "--preset", "sht_ltn", "--per-class"], "UCF"),
     (["evaluate", "--preset", "sht_ltn", "--torch-ckpt"], "both"),
-    (["sweep", "--preset", "sht_ltn", "--grid", "optim.lr_encoder=1e-4",
-      "--mesh", "auto"], "A18"),
+    pytest.param(["sweep", "--preset", "sht_ltn", "--grid",
+                  "optim.lr_encoder=1e-4", "--mesh", "4x2"], "torchrun",
+                 id="argv12-A18"),
     (["sweep", "--preset", "sht_ltn"], "at least one --grid"),
 ])
 def test_cli_refuses_with_the_roadmap_item(argv, match):

@@ -53,6 +53,10 @@ def test_package_imports_no_jax_and_no_jax_package():
                 "lstc_vad_tpu_torch.data.validate",
                 "lstc_vad_tpu_torch.ckpt.torch_export",
                 "lstc_vad_tpu_torch.parallel.mesh",
+                "lstc_vad_tpu_torch.parallel.tp",
+                "lstc_vad_tpu_torch.parallel.distributed",
+                "lstc_vad_tpu_torch.parallel.multihost",
+                "lstc_vad_tpu_torch.parallel.dryrun",
                 "lstc_vad_tpu_torch.utils.logging",
                 "lstc_vad_tpu_torch.utils.profiling",
                 "lstc_vad_tpu_torch.utils.seeding",
@@ -107,3 +111,15 @@ def test_the_pack_path_needs_no_h5py():
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_spawned_workers_import_no_jax():
+    """The processes parallel/dryrun.py::spawn starts (from this process,
+    which has JAX loaded) import neither JAX nor the JAX package."""
+    from lstc_vad_tpu_torch.parallel import dryrun
+
+    for loaded in dryrun.spawn(dryrun.imported_modules, 2):
+        bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN_ROOTS
+               or m == "lstc_vad_tpu" or m.startswith("lstc_vad_tpu.")]
+        assert not bad, bad
+        assert "lstc_vad_tpu_torch.parallel.dryrun" in loaded
