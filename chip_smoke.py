@@ -29,10 +29,13 @@
    path's shape forced through its own launcher (where the tiled kernels
    run), at L = 129, 144, 192, 257 (B=256), 512 and 1024 (B=64), H=8,
    D=256, and at config B's heads (4 x d_k 512, d_v 384, the main path's
-   part count), with the same checks and times and the kernel's launch
-   geometry (``plan``: dynamic shared memory, threads, rows, stages); each
-   call must launch the kernel ``route`` names.  Prints ptxas's registers,
-   static shared memory and spills of each kernel instantiation.
+   part count), and the f32 one also forced at B=256, L = 81 and 128 beside
+   the tiled f32 kernel's rows (contiguous, bias), with the same checks and
+   times and the kernel's launch geometry (``plan``: dynamic shared memory,
+   threads, rows, stages; for the f32 kernel also its key tile, landing
+   zones and where K and V are split, ``operand_split``); each call must
+   launch the kernel ``route`` names.  Prints ptxas's registers, static
+   shared memory and spills of each kernel instantiation.
 3. Slice phase (the main path): LTN scoring to frame AUC at full sht_ltn
    width (3 layers, d_model 2048, d_inner 4096, 8 heads, d_k 256) with
    random weights from a torch.Generator seeded 0, over synthetic features
@@ -308,12 +311,11 @@ def bound(b: int, length: int, with_bias: bool, itemsize: int = 4,
 def ptxas_lines(log: str):
     """One line per kernel instantiation from nvcc's -Xptxas=-v output: its
     template arguments (the tiled kernels' key-tile count NT; the f32
-    streaming kernel's V columns a warp takes of a stage, WS; the bf16
-    streaming kernel's 64-column O blocks a consumer warpgroup holds, NB,
-    its consumer warpgroups, NC, and its key tile, KEYS), registers, static
-    shared memory,
-    stack and spills.  The streaming kernels' dynamic shared memory is in
-    each kernel row's ``plan``."""
+    streaming kernel's 128-column V chunks a pass, NVC; the bf16 streaming
+    kernel's 64-column O blocks a consumer warpgroup holds, NB, its
+    consumer warpgroups, NC, and its key tile, KEYS), registers, static
+    shared memory, stack and spills.  The streaming kernels' dynamic shared
+    memory is in each kernel row's ``plan``."""
     name, spill = "?", ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -321,13 +323,13 @@ def ptxas_lines(log: str):
             entry = m.group(1)
             bf16 = re.search(
                 r"stream_bf16_kernelILi(\d+)ELi(\d+)ELi(\d+)E", entry)
-            f32 = re.search(r"stream_kernelILi(\d+)E", entry)
+            f32 = re.search(r"stream_tf32_kernelILi(\d+)E", entry)
             tiled = re.search(r"^_ZN\w*attention_bf16_kernelILi(\d+)ELi(\d+)E",
                               entry)
             t = re.search(r"ILi(\d+)E", entry)
             name = (f"bf16 stream NB={bf16.group(1)} NC={bf16.group(2)} "
                     f"KEYS={bf16.group(3)}" if bf16
-                    else f"f32 stream WS={f32.group(1)}" if f32
+                    else f"f32 stream NVC={f32.group(1)}" if f32
                     else f"bf16 NC={tiled.group(1)} DB={tiled.group(2)}"
                     if tiled else f"NT={t.group(1)}" if t else entry)
         elif "bytes stack frame" in line:
@@ -419,6 +421,11 @@ def check_kernel(b: int, length: int, with_bias: bool, dev,
     if route.endswith("_stream"):
         row["plan"] = cuda_attention.stream_plan(dt, length, d_k, d_v,
                                                  with_bias)
+        if dt == torch.float32:
+            # where K and V are split into TF32 halves (and V transposed):
+            # option a, in the kernel's producer warpgroup, not (b) a
+            # prologue kernel writing the halves to scratch
+            row["plan"]["operand_split"] = "a"
     elif route == "bf16":
         row["plan"] = cuda_attention.bf16_plan(length, d_k)
     ms = cuda_ms(lambda: attention(q, k, v, bias, temp))
@@ -2471,15 +2478,19 @@ def main() -> int:
                  "bfloat16": rows["bfloat16"][-1]}  # strided, with bias
     # the streaming kernel, both routes, strided with bias: the main shape
     # forced through its launcher, every L of the grid past 128, and config
-    # B's heads (4 x d_k 512, d_v 384) at the main path's part count
+    # B's heads (4 x d_k 512, d_v 384) at the main path's part count; the
+    # f32 one also forced at B=256, L = 81 and 128, laid out as the tiled
+    # f32 kernel's rows above (contiguous, bias)
     stream_cases = [dict(b=main_b, length=main_len, stream=True)] + [
         dict(b=256 if n <= 257 else 64, length=n) for n in STREAM_LENGTHS
     ] + [dict(b=main_b, length=main_len, h=4, d_k=512, d_v=384)]
+    forced = [dict(b=256, length=n, stream=True, strided=False)
+              for n in (81, 128)]
     for dtype in ("float32", "bfloat16"):
         rows[f"{dtype}_stream"] = []
-        for case in stream_cases:
-            row = check_kernel(with_bias=True, dev=dev, strided=True,
-                               dtype=dtype, **case)
+        for case in stream_cases + (forced if dtype == "float32" else []):
+            case = {"strided": True, **case}
+            row = check_kernel(with_bias=True, dev=dev, dtype=dtype, **case)
             rows[f"{dtype}_stream"].append(row)
             print("kernel " + json.dumps(row))
         main_rows[f"{dtype}_stream"] = rows[f"{dtype}_stream"][0]

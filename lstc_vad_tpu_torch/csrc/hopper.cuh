@@ -1,12 +1,15 @@
-// Hopper (sm_90a) building blocks shared by the bf16 attention kernels,
-// csrc/attention_bf16.cu and csrc/attention_stream_bf16.cu: mbarriers, TMA
-// loads and stores of 4-D tensor maps, wgmma on bf16 with f32 sums and its
-// shared-memory descriptors, and the host-side encoding of a tensor map
-// through cudaGetDriverEntryPoint (no -lcuda).
+// Hopper (sm_90a) building blocks shared by the attention kernels on bf16
+// (csrc/attention_bf16.cu, csrc/attention_stream_bf16.cu) and on f32
+// (csrc/attention_stream.cu): mbarriers, TMA loads and stores of 4-D tensor
+// maps, wgmma on bf16 and on TF32 with f32 sums and its shared-memory
+// descriptors, and the host-side encoding of a tensor map through
+// cudaGetDriverEntryPoint (no -lcuda).
 //
-// Layout every kernel here assumes: a box of 64 bf16 columns (128 bytes a
-// row) and any number of rows, 128-byte swizzle (row r's 16-byte chunk c at
-// chunk c ^ (r % 8)), 1024-byte aligned in shared memory.
+// Layout every kernel here assumes: a box of 128 bytes a row, 64 bf16 or 32
+// f32 columns, and any number of rows, 128-byte swizzle (row r's 16-byte
+// chunk c at chunk c ^ (r % 8)), 1024-byte aligned in shared memory.  Both
+// element types give the same K-major wgmma layout: a k-step (16 bf16 or 8
+// TF32 values) is 32 bytes of a row, 8 rows are 1024 bytes.
 
 #pragma once
 
@@ -21,6 +24,7 @@ constexpr int kWG = 128;            // threads of a warpgroup
 constexpr int kMaxSmem = 232448;    // dynamic shared memory of a block
 constexpr int kAlign = 1024;        // the 128-byte swizzle's period
 constexpr int kBoxBytes = 64 * 128; // a 64-row box of 64 bf16 columns
+constexpr int kBoxColsF32 = 32;     // f32 columns of a 128-byte box row
 
 // ------------------------------------------------------------ primitives
 
@@ -171,6 +175,63 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (+)= A·B on TF32, A [64 x 8] in registers (this thread's a0-a3: rows
+// lane/4 and lane/4 + 8 of its warp's 16, k-slots lane%4 and lane%4 + 4),
+// B [8 x N] in shared memory K-major (TF32 takes no transposed operand);
+// the tensor core reads an f32 word's top 19 bits.  N = 32: S of a 32-key
+// tile
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16],
+                                           const uint32_t (&a)[4], uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// the same with N = 128: 128 columns of O
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64],
+                                           const uint32_t (&a)[4], uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// this thread's wgmma groups but the newest N are complete
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -221,16 +282,18 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// a 4-D map (d, L, H, B) of boxes of 64 columns x `rows` rows x `heads`
-// heads over a bf16 view; strides in elements (batch, head, row), 0 where
-// the dimension has size 1.  Reads past a bound give zeros; writes past one
-// are dropped.
+// a 4-D map (d, L, H, B) of boxes of 128 bytes a row (64 bf16 or, with
+// `f32`, 32 f32 columns) x `rows` rows x `heads` heads over a view;
+// strides in elements (batch, head, row), 0 where the dimension has size 1.
+// Reads past a bound give zeros; writes past one are dropped.
 bool encode(CUtensorMap* map, const void* base, int d, int L, int H, int B,
-            const long long* stride, int rows, int heads = 1) {
+            const long long* stride, int rows, int heads = 1,
+            bool f32 = false) {
   const EncodeTiled fn = encoder();
   if (!fn) return false;
-  auto bytes = [](long long s) {
-    return static_cast<cuuint64_t>(s > 0 ? 2 * s : 16);
+  const long long size = f32 ? 4 : 2;
+  auto bytes = [size](long long s) {
+    return static_cast<cuuint64_t>(s > 0 ? size * s : 16);
   };
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(L),
@@ -238,12 +301,16 @@ bool encode(CUtensorMap* map, const void* base, int d, int L, int H, int B,
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {bytes(stride[2]), bytes(stride[1]),
                                  bytes(stride[0])};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows),
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / size),
+                             static_cast<cuuint32_t>(rows),
                              static_cast<cuuint32_t>(heads), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map,
+            f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            4, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

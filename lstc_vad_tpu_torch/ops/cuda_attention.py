@@ -25,11 +25,13 @@ from the shape alone:
   launch geometry);
 - every other shape (any L >= 1, any d_k and d_v >= 1, any strides): the
   streaming kernels, which walk the keys in tiles with the scores of one
-  tile at a time on chip: csrc/attention_stream.cu (f32: one pass with an
-  online softmax, 3xTF32 on mma.sync, K and V through a cp.async ring) and
-  csrc/attention_stream_bf16.cu (bf16: wgmma, with Q, K and V brought in
-  by TMA behind mbarriers by a producer warpgroup, a statistics phase past
-  one key tile so that P is rounded as plain_sdpa rounds it).
+  tile at a time on chip, both with Q, K and V brought in by TMA behind
+  mbarriers by a producer warpgroup and wgmma for both products:
+  csrc/attention_stream.cu (f32: 3xTF32 on TF32 wgmma, one pass with an
+  online softmax, the producers splitting K and V into TF32 halves and V
+  into the K-major V^T that TF32 wgmma reads) and
+  csrc/attention_stream_bf16.cu (bf16: a statistics phase past one key
+  tile so that P is rounded as plain_sdpa rounds it).
 
 q, k and v may be strided views, as the encoder passes them, with a unit
 innermost stride.  The output is a [B, H, L, d_v] view of a
@@ -212,22 +214,32 @@ def _stream_kernel(dtype: torch.dtype):
     return fn, _error_string(lib, errors)
 
 
+# the launch geometry each streaming route's plan function writes
+STREAM_PLAN_KEYS = {
+    torch.float32: ("smem_bytes", "threads", "rows", "stages", "q_resident",
+                    "keys", "landing_stages"),
+    torch.bfloat16: ("smem_bytes", "threads", "rows", "stages",
+                     "q_resident")}
+
+
 def stream_plan(dtype: torch.dtype, length: int, d_k: int, d_v: int,
                 with_bias: bool) -> dict:
     """The streaming kernel's launch geometry at a shape, as its launcher
     computes it: dynamic shared memory bytes, threads and query rows a
-    block, ring stages, and whether Q stays resident.  Builds the kernel's
-    library (the geometry lives in its C source)."""
+    block, ring stages, and whether Q stays resident; for the f32 kernel
+    also its keys a tile and its landing zones (``stages`` are then its
+    ready slots, the ring of split operands the consumers read).  Builds
+    the kernel's library (the geometry lives in its C source)."""
     name, entry, _ = _STREAM_ROUTES[dtype]
     fn = getattr(_build.load(name), entry.replace("_fwd", "_plan"))
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
-    out = (ctypes.c_int * 5)()
+    keys = STREAM_PLAN_KEYS[dtype]
+    out = (ctypes.c_int * len(keys))()
     rc = fn(length, d_k, d_v, int(with_bias), out)
     if rc != 0:
         raise RuntimeError(f"attention: no launch geometry fits L={length} "
                            f"d_k={d_k} d_v={d_v} (cudaError {rc})")
-    return dict(zip(("smem_bytes", "threads", "rows", "stages",
-                     "q_resident"), out))
+    return dict(zip(keys, out))
 
 
 def _strides(t: torch.Tensor):

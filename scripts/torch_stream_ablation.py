@@ -16,25 +16,21 @@ compared here; chip_smoke.py and the card tests check the kernels):
 
 f32 (csrc/attention_stream.cu):
 - ``as_is``: the kernel.
-- ``no_mma`` (wrong values): the three tensor-core products of each 3xTF32
-  step replaced by an ALU instruction on the same operands.
-- ``k_cols_64``: K stages of 64 columns, not 128.
-- ``three_stages``: the ring capped at 3 stages, not 6.
-- ``two_blocks``: blocks of up to 8 warps sized so that two fit an SM,
-  not one of up to 16.
-- ``no_split`` (wrong values): operands passed to the tensor cores unsplit
-  (the split's instructions gone, the three products kept).
-- ``no_pv`` (wrong values): P·V's products skipped (its loads and splits
-  kept).
-- ``no_stage_sync`` (wrong values): no ``__syncthreads`` between stages
-  (each thread still waits for its own copies).
-- ``no_q_fill`` (wrong values): Q never loaded or split.
-- ``no_s`` (wrong values): the Q·K^T loop of each K stage skipped (the
-  stages still copied and waited for).
-- ``no_pv_loop`` (wrong values): the P·V loop of each V stage skipped.
-- ``no_exchange`` (wrong values): no barrier before the row group's warps
-  add up their partial scores.
-- ``no_store`` (wrong values): O never written.
+- ``copy_probe`` (wrong values): the same blocks, rings, TMA boxes and
+  barriers with no arithmetic: the producers do not split, the consumers
+  wait for and release every ring item and store O unscaled.  The floor
+  the layout allows.
+- ``no_products`` (wrong values): no wgmma issued (S and O stay zero).
+- ``no_s`` / ``no_pv`` (wrong values): Q·K^T's, or P·V's, wgmma only cut.
+- ``no_softmax`` (wrong values): S split as P, with no mask, bias,
+  exponential, sum or rescale of O.
+- ``no_split`` (wrong values): the producers leave the ready slots as they
+  are (no split of K and V, no transpose of V): what the split costs, and
+  what a prologue kernel writing the halves to scratch (option b) would
+  save inside this kernel.
+- ``one_stage``: the rings at their least: 2 ready slots (4 where Q goes
+  through them) and 1 landing zone.
+- ``no_bias`` (wrong values): the bias never read.
 
 bf16 (csrc/attention_stream_bf16.cu):
 - ``as_is``: the kernel.
@@ -67,61 +63,62 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-MMA3 = """  mma_tf32(p, a_small, b_big);
-  mma_tf32(p, a_big, b_small);
-  mma_tf32(p, a_big, b_big);"""
+S_PRODUCT = """          wgmma_tf32(acc[set], fs[set], at, 0);
+          wgmma_tf32(acc[set], fb[set], at + (kHalf >> 4), 1);
+          wgmma_tf32(acc[set], fb[set], at, 1);
+"""
+PV_PRODUCT = """          wgmma_tf32(o[c], ps[j], vd, 1);
+          wgmma_tf32(o[c], pb[j], vd + (kHalf >> 4), 1);
+          wgmma_tf32(o[c], pb[j], vd, 1);
+"""
+PREPARE = """      prepare(kind, land, ready + slot * kSlot, n_boxes, p.inv_temp, pt);
+"""
+TILE = """      const int key0 = tile * kKeys;
+"""
+# the consumers wait for and release every ring item of the tile, with no
+# arithmetic (O is stored unscaled)
+PROBE = TILE + """      {  // copy probe
+        const int n = (p.resident ? p.n_kc : 2 * p.n_kc) + nv;
+        for (int x = it; x < it + n; ++x) {
+          mbar_wait(ready_full(x % p.ready), (x / p.ready) & 1);
+          mbar_arrive(ready_empty(x % p.ready));
+        }
+        it += n;
+        continue;
+      }
+"""
+SOFTMAX_START = "      float mx[2] = {-INFINITY, -INFINITY};\n"
+SOFTMAX_END = "      // O += P·V, a V^T chunk of 128 columns a slot."
+
+
+def cut_softmax(src: str) -> str:
+    """S split as P: the mask, bias, max, exponentials and sums cut out; O
+    scaled by 1 and l kept at 1."""
+    i, j = src.index(SOFTMAX_START), src.index(SOFTMAX_END)
+    return (src[:i] + "      const float alpha[2] = {1.f, 1.f};\n"
+            "      l[0] = l[1] = 1.f;\n" + src[j:])
+
+
 # route -> (source, entry, error-string function,
-#           {build: (source substitutions, whether it computes the function)})
+#           {build: (source edits, whether it computes the function)});
+# an edit is an (old, new) pair, replaced once, or a function of the text
 ABLATIONS = {
     "f32": ("attention_stream.cu", "lstc_attention_stream_fwd",
             "lstc_cuda_stream_error_string", {
                 "as_is": ([], True),
-                "no_mma": ([(MMA3, "\n".join(
-                    f"  p[{i}] = __uint_as_float(a_big[{i}] ^ b_big[{i % 2}])"
-                    f" + __uint_as_float(a_small[{i}] ^ b_small[{i % 2}]);"
-                    for i in range(4)))], False),
-                "k_cols_64": ([("constexpr int kKCols = 128;",
-                                "constexpr int kKCols = 64;")], True),
-                "three_stages": ([("kMinStages = 3, kMaxStages = 6;",
-                                   "kMinStages = 3, kMaxStages = 3;")], True),
-                "two_blocks": ([
-                    ("constexpr int kMaxWarps = 16;",
-                     "constexpr int kMaxWarps = 8;"),
-                    ("constexpr int kMaxSmem = 232448;",
-                     "constexpr int kMaxSmem = 114000;"),
-                    ("__launch_bounds__(kMaxWarps * kWarp)",
-                     "__launch_bounds__(kMaxWarps * kWarp, 2)")], True),
-                "no_split": ([("""  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));""", """  big = __float_as_uint(x);
-  small = big;""")], False),
-                "no_pv": ([(
-                    "                mma3(o[c][n], p_big[j], p_small[j], "
-                    "b_big, b_small);",
-                    "                o[c][n][0] += __uint_as_float("
-                    "p_big[j][0] ^ b_big[0] ^ p_small[j][0] ^ b_small[1]);")],
-                          False),
-                "no_stage_sync": ([("""    cp_async_wait_older(S);
-    __syncthreads();""", """    cp_async_wait_older(S);""")], False),
-                "no_q_fill": ([(
-                    "  fill_q(qsplit, 0, p.resident ? q_steps : k_steps);",
-                    "")], False),
-                "no_s": ([(
-                    "        for (int kk = cg; kk < k_steps; kk += G) {",
-                    "        for (int kk = cg; kk < k_steps * (L < 0); "
-                    "kk += G) {")], False),
-                "no_pv_loop": ([(
-                    "            if (j < valid_nt) {\n              const "
-                    "float* const vr",
-                    "            if (j < valid_nt && L < 0) {\n              "
-                    "const float* const vr")], False),
-                "no_exchange": ([("""        __syncthreads();
-        const float* const group""", """        const float* const group""")],
-                                False),
-                "no_store": ([(
-                    "          if (c >= p.n_vc || row >= L || col >= p.dv) "
-                    "continue;",
-                    "          if (c >= p.n_vc || row >= L || col >= p.dv || "
-                    "L > 0) continue;")], False),
+                "copy_probe": ([(PREPARE, ""), (TILE, PROBE)], False),
+                "no_products": ([(S_PRODUCT, ""), (PV_PRODUCT, "")], False),
+                "no_s": ([(S_PRODUCT, "")], False),
+                "no_pv": ([(PV_PRODUCT, "")], False),
+                "no_softmax": ([cut_softmax], False),
+                "no_split": ([(PREPARE, "")], False),
+                "one_stage": ([
+                    ("  p.ready = min(p.resident ? 4 : kMaxReady,",
+                     "  p.ready = min(min_ready,"),
+                    ("  p.land = min(kMaxLand,", "  p.land = min(1,")], True),
+                "no_bias": ([("bv[i] = bias && row < L && key < L",
+                              "bv[i] = false && row < L && key < L")],
+                            False),
             }),
     "bf16": ("attention_stream_bf16.cu", "lstc_attention_stream_bf16_fwd",
              "lstc_cuda_stream_bf16_error_string", {
@@ -150,9 +147,13 @@ def build_all(out_dir: str, routes):
     for route in routes:
         source, _, _, builds = ABLATIONS[route]
         src = open(os.path.join(_build.CSRC_DIR, source)).read()
-        for name, (subs, _) in builds.items():
+        for name, (edits, _) in builds.items():
             text = src
-            for old, new in subs:
+            for edit in edits:
+                if callable(edit):
+                    text = edit(text)
+                    continue
+                old, new = edit
                 if text.count(old) != 1:
                     raise RuntimeError(f"{route} {name}: the source no longer "
                                        f"holds {old.splitlines()[0]!r}")
@@ -161,7 +162,8 @@ def build_all(out_dir: str, routes):
             with open(cu, "w") as f:
                 f.write(text)
             procs[route, name] = subprocess.Popen(
-                [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o",
+                [_build.find_nvcc(), *_build.NVCC_FLAGS,
+                 "-I", str(_build.CSRC_DIR), "-o",
                  os.path.join(out_dir, f"{route}_{name}.so"), cu],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs, logs = {}, {}

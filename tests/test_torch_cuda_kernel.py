@@ -924,6 +924,47 @@ def test_stream_plan_fits_the_block(card, widths, dtype):
             assert plan["q_resident"] == 0, plan
 
 
+@pytest.mark.parametrize("position", range(8))
+def test_stream_kernel_f32_key_order(card, position):
+    """V zero but for the keys at one position of every 8-key group (L =
+    40: a whole tile and a part): the f32 kernel reads P's k-slots in the
+    key order 0,2,4,6,1,3,5,7 and V^T in the same order, so a wrong
+    permutation takes another key's probability at once."""
+    q, k, v, bias = _stream_inputs(card, 60 + position, 2, 3, 40, 16, 24,
+                                   torch.float32, True)
+    keep = (torch.arange(40, device=card) % 8 == position).float()
+    v = (v * keep[:, None]).contiguous()
+    _check_stream(q, k, v, bias, 4.0)
+
+
+# the f32 kernel's key tile
+F32_STREAM_KEYS = 32
+
+
+@pytest.mark.parametrize("length", [F32_STREAM_KEYS - 1, F32_STREAM_KEYS,
+                                    F32_STREAM_KEYS + 1,
+                                    2 * F32_STREAM_KEYS + 1])
+def test_stream_kernel_f32_key_tile_edges(card, length):
+    """Key counts at the f32 kernel's tile edges (one key short of a tile,
+    a tile, one past, two tiles and one): the keys past L of the last tile
+    score -inf and their V^T columns are zero."""
+    q, k, v, bias = _stream_inputs(card, 80 + length, 3, 4, length, 256, 128,
+                                   torch.float32, True, "strided")
+    _check_stream(q, k, v, bias, 16.0)
+
+
+@pytest.mark.parametrize("length", [1, 40, 129])
+def test_stream_kernel_f32_steps_in_the_zero_fill(card, length):
+    """d_k = d_v = 8: one 8-column step of a 128-column chunk holds data,
+    the other fifteen lie in the zero fill of Q, K and V (TMA fills columns
+    past d with 0) and add nothing."""
+    q, k, v, bias = _stream_inputs(card, 90 + length, 2, 3, length, 8, 8,
+                                   torch.float32, True)
+    tiled = cuda_attention.route(q.dtype, length, 8, 8, True)
+    _check_stream(q, k, v, bias, float(np.sqrt(8)),
+                  forced=not tiled.endswith("_stream"))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_stream_kernel_grid_past_65535_blocks(card, dtype):
     """B·H = 22,000 pairs of 3 query tiles each at L = 129: 66,000 blocks,

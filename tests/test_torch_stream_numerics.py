@@ -3,7 +3,12 @@
 csrc/attention_stream.cu (f32) computes attention in one pass over key
 tiles of 32 with an online softmax: each row keeps a running max m and sum
 l, O and l are scaled by exp(m_old - m_new) when a tile raises the max, and
-O is divided by l once at the end (``one_pass``).  csrc/attention_stream
+O is divided by l once at the end (``one_pass``).  Its products are 3xTF32
+on the tensor cores: each operand split x = big + small, big rounded to
+TF32 to nearest (ties away), small = x - big read by the tensor core as
+TF32, small·big + big·small + big·big summed in f32 (``tf32_pass``, with
+small read rounded and truncated, the two readings the hardware may
+take).  csrc/attention_stream
 _bf16.cu (bf16, key tiles of 64) takes the same statistics in a first
 phase, Q·K^T alone, and in a second forms P = exp(s - m) / l as plain_sdpa
 does, rounds it to bf16 and sums P·V (``two_phase``); with one key tile the
@@ -67,6 +72,53 @@ def one_pass(q, k, v, bias, temperature, keys):
         m = m_new
     out = o / l
     return _bf16(out) if low else out
+
+
+def tf32(x, mode="rna"):
+    """f32 ``x`` rounded to TF32 (10 mantissa bits) by bit manipulation: to
+    nearest with ties away from zero (``rna``, cvt.rna.tf32.f32) or
+    truncated (``trunc``), the low 13 bits of the word cleared."""
+    bits = x.contiguous().numpy().view(np.uint32)
+    if mode == "rna":
+        bits = bits + np.uint32(0x1000)
+    return torch.from_numpy((bits & np.uint32(0xffffe000)).view(np.float32))
+
+
+def mm3(a, b, small_read):
+    """a·b in 3xTF32: big = a rounded to TF32, small = a - big (exact in
+    f32) read as TF32 by ``small_read``; small·big + big·small + big·big,
+    each product exact and summed in f32."""
+    a_big, b_big = tf32(a), tf32(b)
+    a_small = tf32(a - a_big, small_read)
+    b_small = tf32(b - b_big, small_read)
+    return (torch.matmul(a_small, b_big) + torch.matmul(a_big, b_small)
+            + torch.matmul(a_big, b_big))
+
+
+def tf32_pass(q, k, v, bias, temperature, small_read, keys=F32_KEYS):
+    """The f32 kernel's order: q·(1/temperature) in f32, S = Q·K^T in
+    3xTF32, + bias, key tiles of ``keys`` with a running max and sum, P =
+    exp(s - m) split as the operands are and O += P·V in 3xTF32, O
+    rescaled when the max grows, O / l at the end."""
+    inv = torch.tensor(1.0, dtype=torch.float32) / scalar_in(temperature,
+                                                             q.dtype)
+    s = mm3(q * inv, k.transpose(-1, -2), small_read)
+    if bias is not None:
+        s = s + bias
+    length = s.shape[-1]
+    m = torch.full((*s.shape[:-1], 1), -np.inf)
+    l = torch.zeros_like(m)
+    o = torch.zeros(*s.shape[:-1], v.shape[-1])
+    for key0 in range(0, length, keys):
+        tile = s[..., key0:key0 + keys]
+        m_new = torch.maximum(m, tile.amax(-1, keepdim=True))
+        base = torch.where(torch.isinf(m_new), torch.zeros_like(m_new), m_new)
+        alpha = torch.exp(m - base)
+        p = torch.exp(tile - base)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + mm3(p, v[..., key0:key0 + keys, :], small_read)
+        m = m_new
+    return o / l
 
 
 def two_phase(q, k, v, bias, temperature, keys=BF16_KEYS):
@@ -150,6 +202,52 @@ def test_f32_one_pass_meets_the_f32_bar(length, seed):
     b, h = (1, 2) if length >= 257 else (2, 3)
     q, k, v, bias = _inputs(seed, b, h, length, 32, 48, torch.float32)
     _check_f32(q, k, v, bias, float(np.sqrt(32)))
+
+
+@pytest.mark.parametrize("small_read", ["rna", "trunc"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("length", LENGTHS)
+def test_f32_tf32_order_meets_the_f32_bar(length, seed, small_read):
+    """The f32 kernel's 3xTF32 products (S and P·V, P split as the operands
+    are) in its one-pass order, whether the tensor core rounds or truncates
+    the small half it reads as TF32."""
+    b, h = (1, 2) if length >= 257 else (2, 3)
+    q, k, v, bias = _inputs(seed, b, h, length, 32, 48, torch.float32)
+    temp = float(np.sqrt(32))
+    got = tf32_pass(q, k, v, bias, temp, small_read)
+    ref = plain_sdpa(q, k, v, temp, bias=bias)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("small_read", ["rna", "trunc"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_f32_tf32_order_at_config_b_widths(seed, small_read):
+    """The same at d_k 512, d_v 384 (config B), L = 129: five key tiles,
+    the widest sums the kernel's route takes at the presets."""
+    q, k, v, bias = _inputs(10 + seed, 1, 2, 129, 512, 384, torch.float32)
+    temp = float(np.sqrt(512))
+    got = tf32_pass(q, k, v, bias, temp, small_read)
+    ref = plain_sdpa(q, k, v, temp, bias=bias)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_tf32_split_is_exact_and_rounds_to_nearest():
+    """big is x rounded to 10 mantissa bits, ties away from zero (1 + 2^-11
+    rounds up to 1 + 2^-10), and big + small gives x back exactly; the
+    truncated reading only clears bits."""
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -12, 3.0e-5, 0.0], dtype=torch.float32)
+    big = tf32(x)
+    assert big.tolist()[:3] == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0]
+    assert torch.equal(big + (x - big), x)
+    assert (tf32(x, "trunc").abs() <= x.abs()).all()
+    rng = np.random.default_rng(0)
+    y = torch.from_numpy(rng.standard_normal(4096).astype(np.float32))
+    small = y - tf32(y)
+    assert torch.equal(tf32(y) + small, y)
+    assert (small.abs() <= 2.0 ** -11 * y.abs()).all()
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
