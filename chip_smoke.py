@@ -21,9 +21,10 @@
    the plain version and, as a yardstick the package never calls,
    F.scaled_dot_product_attention (its mask in q's type), with the bound at
    the route's bytes per element and tensor-core rate, the achieved
-   TFLOP/s of the two products and the share of the bound, and the bf16
+   TFLOP/s of the two products and the share of the bound, and each tiled
    route's launch geometry (``plan``: shared memory, threads, rows and
-   heads a tile, rows a head, stages).  Then the
+   heads a tile, rows a head, stages; for f32 also the keys the products
+   take and the rings, tiles in flight a block).  Then the
    streaming kernel of each route (csrc/attention_stream.cu f32,
    csrc/attention_stream_bf16.cu bf16), strided with bias: at the main
    path's shape forced through its own launcher (where the tiled kernels
@@ -35,7 +36,8 @@
    threads, rows, stages; for the f32 kernel also its key tile, landing
    zones and where K and V are split, ``operand_split``); each call must
    launch the kernel ``route`` names.  Prints ptxas's registers, static
-   shared memory and spills of each kernel instantiation.
+   shared memory and spills of each kernel instantiation, and each warning
+   that ptxas serialized an instantiation's wgmma.
 3. Slice phase (the main path): LTN scoring to frame AUC at full sht_ltn
    width (3 layers, d_model 2048, d_inner 4096, 8 heads, d_k 256) with
    random weights from a torch.Generator seeded 0, over synthetic features
@@ -308,30 +310,41 @@ def bound(b: int, length: int, with_bias: bool, itemsize: int = 4,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _instantiation(entry: str) -> str:
+    """A kernel instantiation's short name from its mangled entry."""
+    bf16 = re.search(r"stream_bf16_kernelILi(\d+)ELi(\d+)ELi(\d+)E", entry)
+    f32 = re.search(r"stream_tf32_kernelILi(\d+)E", entry)
+    tiled = re.search(r"^_ZN\w*attention_bf16_kernelILi(\d+)ELi(\d+)E", entry)
+    tiled32 = re.search(r"attention_fwd_kernelILi(\d+)ELi(\d+)E", entry)
+    return (f"bf16 stream NB={bf16.group(1)} NC={bf16.group(2)} "
+            f"KEYS={bf16.group(3)}" if bf16
+            else f"f32 stream NVC={f32.group(1)}" if f32
+            else f"bf16 NC={tiled.group(1)} DB={tiled.group(2)}" if tiled
+            else f"f32 NC={tiled32.group(1)} NK={tiled32.group(2)}" if tiled32
+            else entry)
+
+
 def ptxas_lines(log: str):
     """One line per kernel instantiation from nvcc's -Xptxas=-v output: its
-    template arguments (the tiled kernels' key-tile count NT; the f32
-    streaming kernel's 128-column V chunks a pass, NVC; the bf16 streaming
-    kernel's 64-column O blocks a consumer warpgroup holds, NB, its
-    consumer warpgroups, NC, and its key tile, KEYS), registers, static
-    shared memory, stack and spills.  The streaming kernels' dynamic shared
-    memory is in each kernel row's ``plan``."""
+    template arguments (the tiled kernels' consumer warpgroups a tile, NC,
+    the bf16 one's 64-column boxes of D, DB, and the f32 one's keys, NK;
+    the f32 streaming kernel's 128-column V chunks a pass, NVC; the bf16
+    streaming kernel's 64-column O blocks a consumer warpgroup holds, NB,
+    its consumer warpgroups, NC, and its key tile, KEYS), registers, static
+    shared memory, stack and spills; and one line per warning that ptxas
+    serialized an instantiation's wgmma ("Potential Performance Loss":
+    C7514, C7515, C7518, C7520).  The kernels' dynamic shared memory is in
+    each kernel row's ``plan``."""
     name, spill = "?", ""
     for line in log.splitlines():
+        w = re.search(r"\((C75\d\d)\) Potential Performance Loss: (.*?) in "
+                      r"the function '(\S+)'", line)
         m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            entry = m.group(1)
-            bf16 = re.search(
-                r"stream_bf16_kernelILi(\d+)ELi(\d+)ELi(\d+)E", entry)
-            f32 = re.search(r"stream_tf32_kernelILi(\d+)E", entry)
-            tiled = re.search(r"^_ZN\w*attention_bf16_kernelILi(\d+)ELi(\d+)E",
-                              entry)
-            t = re.search(r"ILi(\d+)E", entry)
-            name = (f"bf16 stream NB={bf16.group(1)} NC={bf16.group(2)} "
-                    f"KEYS={bf16.group(3)}" if bf16
-                    else f"f32 stream NVC={f32.group(1)}" if f32
-                    else f"bf16 NC={tiled.group(1)} DB={tiled.group(2)}"
-                    if tiled else f"NT={t.group(1)}" if t else entry)
+        if w:
+            yield (f"{_instantiation(w.group(3))}: warning {w.group(1)}: "
+                   f"{w.group(2)}")
+        elif m:
+            name = _instantiation(m.group(1))
         elif "bytes stack frame" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line:
@@ -428,6 +441,8 @@ def check_kernel(b: int, length: int, with_bias: bool, dev,
             row["plan"]["operand_split"] = "a"
     elif route == "bf16":
         row["plan"] = cuda_attention.bf16_plan(length, d_k)
+    else:
+        row["plan"] = cuda_attention.f32_plan(length, d_k)
     ms = cuda_ms(lambda: attention(q, k, v, bias, temp))
     return {
         **row,

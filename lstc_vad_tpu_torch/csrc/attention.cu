@@ -1,5 +1,7 @@
 // Fused scaled dot-product attention with an additive bias, for Hopper
-// (sm_90a), on the tensor cores in f32-accurate 3xTF32.
+// (sm_90a), f32-accurate: the f32 route of the attention operator at L <= 128
+// (csrc/attention_bf16.cu is the bf16 route, csrc/attention_stream.cu takes
+// every other f32 shape).
 //
 //   out[b,h] = softmax(q[b,h] · k[b,h]^T / temperature + bias[h]) · v[b,h]
 //
@@ -14,385 +16,568 @@
 // Replaces the TPU kernel lstc_vad_tpu/ops/pallas_attention.py::_kernel
 // (launched by _forward, entry pallas_sdpa).  That kernel packs floor(128/L)
 // (batch, head) pairs block-diagonally under a -1e30 mask to fill the TPU's
-// 128x128 matrix unit; the packing is a layout for that unit only, so this
-// kernel computes the function and not the packing.
+// 128x128 matrix unit; this one packs 4 or 2 heads of one batch row into a
+// 64-row tile for wgmma's 64 rows, masked the same way.
+//
+// Arithmetic: q·(1/temperature) in f32; both products f32-accurate in 3xTF32
+// (each operand split x = big + small, big = x rounded to TF32 to nearest,
+// small = x - big, and small·big + big·small + big·big summed by the tensor
+// core in f32; the dropped small·small and what the tensor core's truncation
+// of small loses are about 2^-21 |x|); each 8-deep k-step's three products
+// are summed from zero on the tensor core and added to S or O in IEEE f32,
+// since the tensor core truncates as it accumulates (one chained sum lost to
+// plain_sdpa against float64 at logits near ±100); the softmax in IEEE f32
+// (expf, a true division), P normalised before P·V.
 //
 // What bounds it on an H100 SXM.  It must read q, k, v and write out once:
-// 16·L·D bytes per (b, h) pair, against 4·L²·D FLOP for its two products, so
-// L/4 FLOP per byte.  In 3xTF32 the tensor cores give 495/3 = 165 f32-accurate
-// TFLOP/s; over 3.35 TB/s that is 49 FLOP per byte, so the kernel is bound by
-// the bytes at every L it takes (L <= 128 < 197).  At the main path's shape
-// (B=924, H=8, L=49, D=256, bias) the bytes take 0.443 ms and the products
-// 0.11 ms.  The [L, L] scores never go to device memory.
+// 16·L·D bytes per (b, h) pair, and the bias once, against 4·L²·D FLOP for
+// its two products.  In 3xTF32 the tensor cores give 495/3 = 165
+// f32-accurate TFLOP/s; over 3.35 TB/s that is 49 FLOP per byte against L/4,
+// so the bytes bound it at every L it takes.  At the main path's shape
+// (B=924, H=8, L=49, D=256, bias) the bytes take 0.443 ms.  The [L, L] scores
+// never go to device memory.  Below the bytes, what a tile costs is a chain
+// of short dependent steps (wait for a chunk, split it, synchronise, issue
+// products, wait for them, add), so the design keeps as many tiles in
+// flight on an SM as registers and shared memory allow, and gives the
+// products no work past the tile's keys.
 //
-// Design, and what each part does about that bound:
-// - Tiling.  Both products run as mma.sync.m16n8k8 TF32 tensor-core tiles,
-//   one warp per 16 query rows.  Query rows are padded to 16 per warp and keys
-//   to 8: at L=49 a pair has 4 warps over 64 rows and 56 keys.  One block
-//   covers one (b, h) pair; at L <= 32 a block covers 4 or 2 pairs so that it
-//   still has 4 warps.  The key-tile count ceil(L/8) is the compile-time
-//   instantiation (1..16); D is a runtime count of 32-column chunks.
-// - f32 accuracy.  Each operand is split x = big + small with big = tf32(x)
-//   and small = tf32(x - big), and every product accumulates
-//   small·big + big·small + big·big in f32 (CUTLASS's OpMultiplyAddFastF32).
-//   The dropped small·small term and what neither half keeps are about
-//   2^-22 |x|, near f32's own rounding.  Single-pass TF32 keeps 11 bits and
-//   is not used.  Each 8-deep step's three products are summed from zero on
-//   the tensor core and added to the running sum by an IEEE f32 add, since
-//   the tensor core truncates as it accumulates.  The rounding to TF32 is
-//   two integer instructions.  The softmax is IEEE f32 in registers: expf,
-//   a true division, row max and sum across the 4 lanes of an mma quad.
-// - Staging.  Q and K, then V, stream through shared memory in 32-column
-//   D-chunks by 16-byte cp.async.cg copies into a double buffer, so one
-//   chunk's copies overlap the previous chunk's products; S accumulates in
-//   registers over the chunks, and each chunk of O is stored as it completes.
-//   Rows past L, and all rows of a pair past B·H, are zero-filled by the
-//   copy (src-size 0): nothing past a tensor is read, padded V rows are
-//   exactly 0, and padded keys are set to -inf before the row max.  Padded
-//   query rows are computed and never stored.  Shared-memory rows are padded
-//   from 32 to 36 floats: the fragment loads of Q and K (lane (g, t) reads
-//   row g, column t) then fall on banks 4g + t, and those of V (row 2t,
-//   column g) on banks 8t + g, 32 different banks each.  A stage holds
-//   pairs · (16·ceil(L/16) + 8·ceil(L/8)) rows: 34.5 KB double-buffered at
-//   L=49, so 6 blocks fit on an SM by shared memory, 72 KB at L=128.
-// - P stays in registers.  Lane (g, t) holds the scores of keys 8j+2t and
-//   8j+2t+1 of its rows g and g+8 as the C fragment of key tile j.  Read as
-//   the A fragment of P·V, they stand at k = t and k = t+4 if the tile's keys
-//   are taken in the order 0,2,4,6,1,3,5,7; V's B fragment is read in the
-//   same order (rows 2t and 2t+1), so the sum is unchanged and P needs no
-//   shuffle and no shared tile.
-// - What is left.  On the card the kernel stays short of the bytes bound
-//   because of instruction issue, not the tensor cores or the bytes: a 3xTF32
-//   step is 2 shared loads, 10 instructions of splitting, 3 mma and 4 adds,
-//   and each warp splits all of K and V itself.  PERF.md has the numbers.
+// Design (csrc/attention_bf16.cu's, carried to f32):
+// - Tiles.  A tile is 64 query rows of one batch row b: 4 heads of L <= 16
+//   (16 rows each), 2 heads of L <= 32, one head of L <= 64; at L in (64,
+//   128] it is 128 rows of one head, split over two consumer warpgroups,
+//   which share its K and V.  The products take NK keys: all 64 of a tile
+//   of 4 or 2 heads (S set to -inf between heads), 8·ceil(L/8) of a tile of
+//   one head (a compile-time instantiation each: NK = 40 ... 128).  Rows
+//   past L and heads past H are zero-filled by TMA and never stored; keys
+//   past L score -inf.
+// - Persistent, warp-specialised blocks.  One block an SM walks the tiles in
+//   a strided loop.  At 64-row tiles it has three consumer warpgroups, each
+//   with a ring of its own taking every third tile of the block, so that
+//   three tiles are in flight and one's splits, softmax and stores overlap
+//   the others' products (one or two in flight are slower: the builds
+//   one_tile_in_flight and two_tiles_in_flight of
+//   scripts/torch_attention_ablation.py, PERF.md §6); 512 threads, 160
+//   registers a consumer thread.  At 128-row tiles both consumer
+//   warpgroups take one tile from one ring (384 threads, 232 registers).
+//   One thread of the producer warpgroup a ring issues the TMA loads; the
+//   producers hand their registers to the consumers (setmaxnreg).
+// - Chunks of D.  A tile's Q, K and V with K and V's TF32 halves do not fit
+//   in 227 KB at D = 256, so the ring's items are 32-column chunks (one
+//   128-byte box a row): Q and K's boxes of chunk c, for S, then V's box of
+//   chunk c, for O.  S accumulates in registers over the chunks; O is
+//   produced, normalised and stored chunk by chunk.  3 or 4 stages a ring.
+// - TMA in.  4-D tensor maps (d, L, H, B) over the views' own strides, f32
+//   boxes of 32 columns x R rows x G heads (128 rows at 128-row tiles),
+//   128-byte swizzle (csrc/hopper.cuh).
+// - The split, once per tile.  The consumers that use a chunk split it
+//   together, each thread a share, from the landed box into a split buffer
+//   (two at 128-row tiles, where one warpgroup may split the next chunk
+//   while the other still reads the last): K into its big and small halves
+//   in its own layout (K-major, as TF32 wgmma reads B), V transposed to
+//   K-major V^T, TF32 wgmma taking no transposed operand.  The producer-side
+//   split of csrc/attention_stream.cu (landing zones, ready slots) was built
+//   too and was slower at the main shape: its producers, two warps a ring,
+//   did not keep up with the consumers (PERF.md §6).
+// - S = Q·K^T is wgmma.m64nNKk8 with Q's A fragments from registers: loaded
+//   from the landed box a k-step at a time, scaled, split.
+// - O = P·V is wgmma.m64n32k8 a chunk, P as the register A operand: the S
+//   accumulators of an 8-key group (lane (g, t) holds keys 2t, 2t+1) read as
+//   the A fragment of a k-step (k-slots t, t + 4), which puts the keys in
+//   the order 0,2,4,6,1,3,5,7; V^T's slots follow it, so P needs no shuffle.
+// - The bias [H, L, L] (at most 512 KB, resident in L2) is read once S is
+//   complete, so that it holds no registers across the products, all of a
+//   thread's loads in flight together.
+// - TMA out.  Each O chunk is written into a staging box of its warpgroup
+//   (swizzled as TMA reads it; two a warpgroup at 128-row tiles) and stored
+//   by a bulk tensor store to out's map, which drops rows past L and heads
+//   past H.
+// - ptxas serializes every wgmma of a kernel (warnings C7514, C7515, C7518,
+//   C7520) whose products stay in flight across a loop's back edge or a
+//   branch, that reads or writes their accumulators between issue and wait,
+//   or that waits on a barrier between writing a product's registers and
+//   issuing it.  So each chunk ends with nothing in flight, its ring stage
+//   is waited for before any product register is written, and every k-step
+//   runs (a loop that left early was serialized: C7514).
+// - The launch geometry (tile rows, heads a tile, keys, threads, rings,
+//   stages, shared memory) is computed by one function, `plan`, which the
+//   launcher and lstc_attention_f32_plan (ops/cuda_attention.py::f32_plan)
+//   both call.
 //
 // The encoder's GEMMs (projections, FFN, head) stay nn.Linear on cuBLAS, as
 // the JAX package left them to XLA.
 //
 // Interface: a plain C function, loaded with ctypes.  It launches on the
-// caller's stream, does not synchronise, allocates nothing, and returns
-// cudaGetLastError() (0 = launched).  The caller picks the pairs per block
-// (ops/cuda_attention.py::tile holds the table and mirrors the shared-memory
-// size below).
+// caller's stream, does not synchronise, allocates nothing, and returns a
+// cudaError_t (0 = launched).
 
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kChunk = 32;         // D-columns per pipeline stage
-constexpr int kRow = kChunk + 4;   // floats per shared-memory row
-constexpr int kMaxKeyTiles = 16;   // L <= 128
+constexpr int kMaxL = 128;
 constexpr int kMaxD = 256;
-constexpr int kStages = 2;         // shared-memory buffers in the pipeline
+constexpr int kMaxStages = 4;
+constexpr int kCols = kBoxColsF32;          // columns of a chunk: 32
+constexpr int kRowBytes = 4 * kCols;        // a box row: 128 bytes
+constexpr int kOBox = 64 * kRowBytes;       // a staging box: 64 rows of O
+constexpr int kVSub = 32 * kRowBytes;       // 32 keys of V^T's 32 rows
 
-struct Strides {  // in elements: batch, head and row stride of each tensor
-  long long q[3], k[3], v[3], o[3];
+struct Params {
+  const float* bias;
+  int H, L;
+  int head_rows;   // R: rows a head takes in a tile (16, 32, 64 or 128)
+  int head_shift;  // log2(R)
+  int heads;       // G: heads of a tile
+  int n_hg;        // tiles of a batch row: ceil(H / G)
+  int n_tiles;     // B · n_hg
+  int n_chunks;    // D / 32
+  int stages;      // of each ring
+  float inv_temp;
 };
 
-// x rounded to TF32, to nearest with ties away from zero: what
-// cvt.rna.tf32.f32 gives, in 2 integer instructions where ptxas lowers the
-// cvt to 4 with a guard for inf and NaN (which this form also carries
-// through: the mantissa add cannot turn either into a finite value).
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+// the threads that split a chunk together: the warpgroup at 64-row tiles,
+// both consumer warpgroups at 128-row tiles
+template <int NC>
+__device__ __forceinline__ void split_sync(int wg) {
+  if (NC == 1)
+    wg_sync(wg);
+  else
+    asm volatile("bar.sync 3, 256;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a·b in 3xTF32, the small cross terms first.  The three products go
-// into a zeroed fragment that is then added to d in IEEE f32: the tensor
-// core's own accumulation truncates, and over many steps into a large
-// running sum its error drifts one way (1e-4 on the output at logits ~±100).
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&a_big)[4],
-                                     const uint32_t (&a_small)[4],
-                                     const uint32_t (&b_big)[2],
-                                     const uint32_t (&b_small)[2]) {
-  float p[4] = {0.f, 0.f, 0.f, 0.f};
-  mma(p, a_small, b_big);
-  mma(p, a_big, b_small);
-  mma(p, a_big, b_big);
+// a landed K box (M keys x 32 columns) into its TF32 halves in the same
+// layout, its first NK keys: big at dst, small at dst + M·128; thread i of
+// the 2M (NC·128) a share
+template <int M, int NK>
+__device__ __forceinline__ void split_k(const char* src, char* dst, int i) {
+  constexpr int kBox = M * kRowBytes;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] += p[i];
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(s), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// all but the newest kStages - 2 groups have landed
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// NT: key tiles of 8, ceil(L / 8).  A pair has MT = ceil(NT / 2) warps of 16
-// query rows; a block has pairs_per_block pairs, 4 warps up to L = 64.
-template <int NT>
-constexpr int block_threads() {
-  return NT <= 4 ? 4 * kWarp : (NT + 1) / 2 * kWarp;
-}
-
-// Registers are capped for the blocks an SM holds: 6 (24 warps, as many as
-// shared memory allows) at L = 49..64, the SHT LTN length; 4 below, where 80
-// registers a thread would spill; 2 above, where uncapped ptxas takes up to
-// 255 a thread at L = 81 and leaves 1 block of 6 warps on an SM.
-template <int NT>
-__global__ void __launch_bounds__(block_threads<NT>(),
-                                  NT <= 6 ? 4 : NT <= 8 ? 6 : 2)
-attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ bias,
-                     float* __restrict__ out, const Strides str, int n_pairs,
-                     int pairs_per_block, int H, int L, int D,
-                     float temperature) {
-  constexpr int MT = (NT + 1) / 2;
-  constexpr int QROWS = 16 * MT, ROWS = QROWS + 8 * NT;  // Q rows, then K or V
-  constexpr int PIECES = kChunk / 4;  // 16-byte copies a row
-  extern __shared__ float4 smem4[];
-  float* const smem = reinterpret_cast<float*>(smem4);
-  const int stage_floats = pairs_per_block * ROWS * kRow;
-  const int n_chunks = D / kChunk;
-  const int n_stages = 2 * n_chunks;  // Q and K chunks, then V chunks
-  // q·(1/temperature), as PyTorch scales a CUDA tensor by a host scalar
-  const float inv_temp = 1.f / temperature;
-
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int g = lane >> 2, t = lane & 3;  // fragment row group, column
-  const int slot = warp / MT;             // the block's pair of this warp
-  const int m0 = (warp % MT) * 16;        // its 16 query rows
-  const int pair = blockIdx.x * pairs_per_block + slot;
-  const bool live = pair < n_pairs;
-  const long long b = live ? pair / H : 0, h = live ? pair % H : 0;
-
-  // Stage s < n_chunks: columns [32s, 32s + 32) of Q into rows [0, QROWS) and
-  // of K into rows [QROWS, ROWS); stage n_chunks + c: columns [32c, 32c + 32)
-  // of V into rows [QROWS, ROWS).  Thread i copies 16 bytes at column
-  // 4·(i % 8) of rows i/8, i/8 + blockDim/8, ...; rows [n_valid, n_rows)
-  // are padding, zero-filled from no source.
-  const int copy_row = threadIdx.x / PIECES, copy_step = blockDim.x / PIECES;
-  const int copy_col = (threadIdx.x % PIECES) * 4;
-  auto copy_rows = [&](float* dst, const float* src, long long row_stride,
-                       int n_rows, int n_valid) {
-    int r = copy_row;
-    dst += r * kRow;
-    src += r * row_stride;
-    for (; r < n_valid; r += copy_step) {
-      cp_async16(dst, src, true);
-      dst += copy_step * kRow;
-      src += copy_step * row_stride;
-    }
-    for (; r < n_rows; r += copy_step) {
-      cp_async16(dst, q, false);
-      dst += copy_step * kRow;
-    }
-  };
-  auto load = [&](int s, float* buf) {
-    const bool is_v = s >= n_chunks;
-    const int col = (is_v ? s - n_chunks : s) * kChunk + copy_col;
-    for (int p = 0; p < pairs_per_block; ++p) {
-      const int pr = blockIdx.x * pairs_per_block + p;
-      const bool pr_live = pr < n_pairs;
-      const long long pb = pr_live ? pr / H : 0, ph = pr_live ? pr % H : 0;
-      const int n_valid = pr_live ? L : 0;
-      float* const dst = buf + p * ROWS * kRow + copy_col;
-      if (is_v) {
-        copy_rows(dst + QROWS * kRow, v + pb * str.v[0] + ph * str.v[1] + col,
-                  str.v[2], ROWS - QROWS, n_valid);
-      } else {
-        copy_rows(dst, q + pb * str.q[0] + ph * str.q[1] + col, str.q[2],
-                  QROWS, n_valid);
-        copy_rows(dst + QROWS * kRow, k + pb * str.k[0] + ph * str.k[1] + col,
-                  str.k[2], ROWS - QROWS, n_valid);
-      }
-    }
-  };
-
-  // s[j]: C fragment of key tile j; lane (g, t) holds rows m0+g (s[j][0..1])
-  // and m0+g+8 (s[j][2..3]) at keys 8j+2t and 8j+2t+1.  Scores, then P.
-  float s[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-
-  // kStages - 1 stages in flight ahead of the one computed; one group per
-  // stage, empty ones at the end, so that the wait stays uniform
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_stages) load(s, smem + s * stage_floats);
-    cp_async_commit();
-  }
-  for (int stage = 0; stage < n_stages; ++stage) {
-    cp_async_wait();
-    // the stage has landed for every thread, and every warp is done with the
-    // buffer computed in the previous iteration, which the next copy reuses
-    __syncthreads();
-    const int ahead = stage + kStages - 1;
-    if (ahead < n_stages) load(ahead, smem + (ahead % kStages) * stage_floats);
-    cp_async_commit();
-    const float* tile =
-        smem + (stage % kStages) * stage_floats + slot * ROWS * kRow;
-    const float* kv = tile + QROWS * kRow;
-
-    if (stage < n_chunks) {
-      // S += (Q / temperature)[:, chunk] · K[:, chunk]^T
-      const float* qs = tile + m0 * kRow;
-#pragma unroll
-      for (int kk = 0; kk < kChunk; kk += 8) {
-        uint32_t a_big[4], a_small[4];
-        split(qs[g * kRow + kk + t] * inv_temp, a_big[0], a_small[0]);
-        split(qs[(g + 8) * kRow + kk + t] * inv_temp, a_big[1], a_small[1]);
-        split(qs[g * kRow + kk + t + 4] * inv_temp, a_big[2], a_small[2]);
-        split(qs[(g + 8) * kRow + kk + t + 4] * inv_temp, a_big[3],
-              a_small[3]);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          uint32_t b_big[2], b_small[2];
-          const float* kr = kv + (8 * j + g) * kRow + kk + t;
-          split(kr[0], b_big[0], b_small[0]);
-          split(kr[4], b_big[1], b_small[1]);
-          mma3(s[j], a_big, a_small, b_big, b_small);
-        }
-      }
-
-      if (stage == n_chunks - 1) {
-        // + bias, -inf at padded keys, then the row softmax in f32
-        const float* bias_h = bias ? bias + h * L * L : nullptr;
-        float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int row = m0 + g + (e >> 1) * 8;
-            const int key = 8 * j + 2 * t + (e & 1);
-            if (key >= L)
-              s[j][e] = -INFINITY;
-            else if (bias_h && row < L)
-              s[j][e] += __ldg(bias_h + row * L + key);
-            mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-          }
-        mx[0] = quad_max(mx[0]);
-        mx[1] = quad_max(mx[1]);
-        float sum[2] = {0.f, 0.f};
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            s[j][e] = expf(s[j][e] - mx[e >> 1]);
-            sum[e >> 1] += s[j][e];
-          }
-        sum[0] = quad_sum(sum[0]);
-        sum[1] = quad_sum(sum[1]);
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[j][e] = s[j][e] / sum[e >> 1];
-      }
-    } else {
-      // O[:, chunk] = P · V[:, chunk], keys of each tile in the order
-      // 0,2,4,6,1,3,5,7 on both sides
-      float o[kChunk / 8][4];
-#pragma unroll
-      for (int n = 0; n < kChunk / 8; ++n)
-        o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        uint32_t a_big[4], a_small[4];
-        split(s[j][0], a_big[0], a_small[0]);  // row g,   key 2t   -> k = t
-        split(s[j][2], a_big[1], a_small[1]);  // row g+8, key 2t   -> k = t
-        split(s[j][1], a_big[2], a_small[2]);  // row g,   key 2t+1 -> k = t+4
-        split(s[j][3], a_big[3], a_small[3]);  // row g+8, key 2t+1 -> k = t+4
-        const float* vr = kv + (8 * j + 2 * t) * kRow + g;
-#pragma unroll
-        for (int n = 0; n < kChunk / 8; ++n) {
-          uint32_t b_big[2], b_small[2];
-          split(vr[8 * n], b_big[0], b_small[0]);
-          split(vr[kRow + 8 * n], b_big[1], b_small[1]);
-          mma3(o[n], a_big, a_small, b_big, b_small);
-        }
-      }
-      if (live) {
-        const int col = (stage - n_chunks) * kChunk + 2 * t;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int row = m0 + g + 8 * half;
-          if (row >= L) continue;
-          float* dst = out + b * str.o[0] + h * str.o[1] + row * str.o[2] + col;
-#pragma unroll
-          for (int n = 0; n < kChunk / 8; ++n)
-            *reinterpret_cast<float2*>(dst + 8 * n) =
-                make_float2(o[n][2 * half], o[n][2 * half + 1]);
-        }
-      }
-    }
+  for (int n = 0; n < kBox / (16 * 2 * M); ++n) {
+    const int off = 16 * (i + 2 * M * n);
+    if (off >= NK * kRowBytes) break;
+    const float4 x = *reinterpret_cast<const float4*>(src + off);
+    uint32_t b[4], s[4];
+    split(x.x, b[0], s[0]);
+    split(x.y, b[1], s[1]);
+    split(x.z, b[2], s[2]);
+    split(x.w, b[3], s[3]);
+    *reinterpret_cast<uint4*>(dst + off) = make_uint4(b[0], b[1], b[2], b[3]);
+    *reinterpret_cast<uint4*>(dst + kBox + off) =
+        make_uint4(s[0], s[1], s[2], s[3]);
   }
 }
 
-struct Args {
-  const float *q, *k, *v, *bias;
-  float* out;
-  Strides str;
-  int n_pairs, pairs_per_block, H, L, D;
-  float temperature;
+// a landed V box (M keys x 32 columns) transposed to V^T (32 rows of columns
+// x M keys, in M/32 boxes of 32 keys), the keys of every 8-key group in the
+// order 0,2,4,6,1,3,5,7, and split, its first NK keys: big at dst, small at
+// dst + M·128.  Unit i (one a thread, 2M of them): columns 4nq .. 4nq + 3 x
+// the 4 keys 8G + 2e + par (e = 0..3) that fill slots 4par .. 4par + 3 of
+// key group G; a warp's reads and writes each fall on 8 distinct 16-byte
+// bank groups.
+template <int M, int NK>
+__device__ __forceinline__ void split_v(const char* src, char* dst, int i) {
+  constexpr int kBox = M * kRowBytes;
+  const int gp = i & 7;                  // 2 (G % 4) + par: the slot chunk
+  const int nq = (i >> 3) & 7, sub = i >> 6;
+  const int G = 4 * sub + (gp >> 1), par = gp & 1;
+  if (G >= NK / 8) return;
+  float4 x[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int key = 8 * G + 2 * e + par;
+    x[e] = *reinterpret_cast<const float4*>(src + key * kRowBytes +
+                                            ((nq ^ (key & 7)) << 4));
+  }
+  const float4 col[4] = {make_float4(x[0].x, x[1].x, x[2].x, x[3].x),
+                         make_float4(x[0].y, x[1].y, x[2].y, x[3].y),
+                         make_float4(x[0].z, x[1].z, x[2].z, x[3].z),
+                         make_float4(x[0].w, x[1].w, x[2].w, x[3].w)};
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int n = 4 * nq + c;
+    const int off = sub * kVSub + n * kRowBytes + ((gp ^ (n & 7)) << 4);
+    uint32_t b[4], s[4];
+    split(col[c].x, b[0], s[0]);
+    split(col[c].y, b[1], s[1]);
+    split(col[c].z, b[2], s[2]);
+    split(col[c].w, b[3], s[3]);
+    *reinterpret_cast<uint4*>(dst + off) = make_uint4(b[0], b[1], b[2], b[3]);
+    *reinterpret_cast<uint4*>(dst + kBox + off) =
+        make_uint4(s[0], s[1], s[2], s[3]);
+  }
+}
+
+// The launch geometry of an instantiation.  NC: consumer warpgroups a tile
+// (1: 64-row tiles, three in flight a block, a ring and a consumer
+// warpgroup each; 2: 128-row tiles, one in flight, both consumer warpgroups
+// on it); CW consumer warpgroups and one producer warpgroup a block.
+template <int NC>
+struct Shape {
+  static constexpr int CW = NC == 1 ? 3 : 2;
+  static constexpr int RINGS = CW / NC;      // tiles in flight a block
+  // split buffers a ring: at 128-row tiles a warpgroup may split the next
+  // chunk while the other still reads the last
+  static constexpr int SPLITS = NC;
+  static constexpr int STAGING = NC;         // staging boxes a warpgroup
+  static constexpr int THREADS = (CW + 1) * kWG;
+  // registers a producer and a consumer thread keep (setmaxnreg)
+  static constexpr int PRODUCER_REGS = NC == 1 ? 32 : 40;
+  static constexpr int CONSUMER_REGS = NC == 1 ? 160 : 232;
 };
 
-template <int NT>
-int launch(const Args& a, cudaStream_t stream) {
-  constexpr int MT = (NT + 1) / 2;
-  // keep in step with ops/cuda_attention.py::tile
-  const size_t smem = kStages * sizeof(float) *
-                      static_cast<size_t>(a.pairs_per_block) *
-                      (16 * MT + 8 * NT) * kRow;
-  const int threads = a.pairs_per_block * MT * kWarp;
-  if (threads > block_threads<NT>())
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attention_fwd_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+// NK: keys of a tile that the products take, 8·ceil(L / 8) with one head a
+// tile, else all 64 (S = Q·K^T is 64 x NK a consumer warpgroup)
+template <int NC, int NK>
+__global__ void __launch_bounds__(Shape<NC>::THREADS, 1)
+attention_fwd_kernel(const __grid_constant__ Params p,
+                     const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap to) {
+  constexpr int M = 64 * NC;              // rows (and keys) of a tile
+  constexpr int kBox = M * kRowBytes;     // a box of M rows x 32 columns
+  constexpr int kStage = 2 * kBox;        // Q and K of a chunk, or V
+  constexpr int kSplit = 2 * kBox;        // a chunk's K or V^T, both halves
+  constexpr int CW = Shape<NC>::CW, RINGS = Shape<NC>::RINGS;
+  constexpr int SPLITS = Shape<NC>::SPLITS, STAGING = Shape<NC>::STAGING;
+  constexpr int NS = NK / 2;              // S's accumulators a thread
+  constexpr int S_SETS = 2;               // S's k-steps in flight
+  constexpr int O_SETS = 2;               // O's
+  // the kernel has no static shared memory, so the dynamic region starts at
+  // offset 0 of the block's window, 1024-byte aligned for the swizzle
+  extern __shared__ __align__(1024) char smem[];
+  if (smem_u32(smem) % kAlign) __trap();
+  const int S = p.stages;
+  char* const split0 = smem + RINGS * S * kStage;
+  char* const staging = split0 + RINGS * SPLITS * kSplit;
+  const uint32_t bar0 = smem_u32(staging + CW * STAGING * kOBox);
+  auto full = [&](int r, int s) { return bar0 + 8 * (2 * S * r + s); };
+  auto empty = [&](int r, int s) { return bar0 + 8 * (2 * S * r + S + s); };
+
+  if (threadIdx.x == 0) {
+    for (int r = 0; r < RINGS; ++r)
+      for (int s = 0; s < S; ++s) {
+        mbar_init(full(r, s), 1);
+        mbar_init(empty(r, s), NC * kWG);
+      }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const unsigned grid = static_cast<unsigned>(
-      (a.n_pairs + a.pairs_per_block - 1) / a.pairs_per_block);
-  attention_fwd_kernel<NT><<<grid, threads, smem, stream>>>(
-      a.q, a.k, a.v, a.bias, a.out, a.str, a.n_pairs, a.pairs_per_block, a.H,
-      a.L, a.D, a.temperature);
+  __syncthreads();
+
+  if (threadIdx.x >= CW * kWG) {
+    // ------------------------------------------------------------ producer
+    // lane 0 of warp r feeds ring r: the chunks of every RINGS-th tile
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        Shape<NC>::PRODUCER_REGS) : "memory");
+    const int pt = threadIdx.x - CW * kWG, r = pt / 32;
+    if (pt % 32 || r >= RINGS) return;
+    char* const ring = smem + r * S * kStage;
+    int it = 0;
+    for (int tile = blockIdx.x + r * gridDim.x; tile < p.n_tiles;
+         tile += RINGS * gridDim.x) {
+      const int b = tile / p.n_hg, h0 = (tile % p.n_hg) * p.heads;
+      for (int x = 0; x < 2 * p.n_chunks; ++x, ++it) {
+        const int s = it % S, use = it / S;
+        const uint32_t dst = smem_u32(ring + s * kStage);
+        if (use > 0) mbar_wait(empty(r, s), (use - 1) & 1);
+        if (x < p.n_chunks) {
+          mbar_arrive_tx(full(r, s), 2 * kBox);
+          tma_box(dst, &tq, full(r, s), kCols * x, 0, h0, b);
+          tma_box(dst + kBox, &tk, full(r, s), kCols * x, 0, h0, b);
+        } else {
+          mbar_arrive_tx(full(r, s), kBox);
+          tma_box(dst, &tv, full(r, s), kCols * (x - p.n_chunks), 0, h0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---------------------------------------------------- consumer warpgroups
+  // The producers' registers go to the consumers (512 threads at 128
+  // registers: 32 and 160; 384 at 168: 40 and 232).  Warpgroup wg computes
+  // rows [64 wr, 64 wr + 64) of the tiles of ring rg.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      Shape<NC>::CONSUMER_REGS) : "memory");
+  const int wg = threadIdx.x / kWG, tid = threadIdx.x % kWG;
+  const int rg = NC == 1 ? wg : 0, wr = NC == 1 ? 0 : wg;
+  const int split_tid = NC == 1 ? tid : threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int t = lane & 3, g = lane >> 2;
+  const int r0 = 64 * wr + 16 * warp + g;  // rows r0 and r0 + 8 of the tile
+  const int L = p.L, R = p.head_rows, hs = p.head_shift;
+  char* const ring = smem + rg * S * kStage;
+  char* const split_buf = split0 + rg * SPLITS * kSplit;
+  char* const my_staging = staging + wg * STAGING * kOBox;
+  int it = 0, n_stores = 0;
+
+  // this thread's Q words of k-step kk of a landed box: rows r0 and r0 + 8,
+  // columns 8kk + t and 8kk + t + 4 (16-byte chunks 2kk and 2kk + 1)
+  auto load_q = [&](float (&a)[4], const char* box, int kk) {
+    const char* const hi = box + r0 * kRowBytes;
+    const char* const lo = hi + 8 * kRowBytes;
+    const int c0 = ((2 * kk) ^ g) << 4, c1 = ((2 * kk + 1) ^ g) << 4;
+    a[0] = *reinterpret_cast<const float*>(hi + c0 + 4 * t);
+    a[1] = *reinterpret_cast<const float*>(lo + c0 + 4 * t);
+    a[2] = *reinterpret_cast<const float*>(hi + c1 + 4 * t);
+    a[3] = *reinterpret_cast<const float*>(lo + c1 + 4 * t);
+  };
+
+  for (int tile = blockIdx.x + rg * gridDim.x; tile < p.n_tiles;
+       tile += RINGS * gridDim.x) {
+    const int b = tile / p.n_hg, h0 = (tile % p.n_hg) * p.heads;
+
+    // S = (Q / temperature)·K^T over the chunks of D; sc[i] is row
+    // r0 + 8((i >> 1) & 1), key 8(i >> 2) + 2t + (i & 1)
+    float sc[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sc[i] = 0.f;
+#pragma unroll 1
+    for (int c = 0; c < p.n_chunks; ++c, ++it) {
+      const int s = it % S;
+      const char* const st = ring + s * kStage;
+      mbar_wait(full(rg, s), (it / S) & 1);
+      char* const ks = split_buf + (it % SPLITS) * kSplit;
+      split_k<M, NK>(st + kBox, ks, split_tid);
+      float raw[4];
+      load_q(raw, st, 0);
+      fence_async_smem();
+      split_sync<NC>(wg);
+
+      // each k-step's three products summed from zero (S_SETS of them in
+      // flight), then added to sc in IEEE f32
+      float acc[S_SETS][NS];
+#pragma unroll
+      for (int x = 0; x < S_SETS; ++x)
+#pragma unroll
+        for (int i = 0; i < NS; ++i) acc[x][i] = 0.f;
+      uint32_t fb[S_SETS][4], fs[S_SETS][4];
+      const uint64_t kd = desc(smem_u32(ks), 16, 1024);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int set = kk % S_SETS;
+        if (kk >= S_SETS) {
+          wgmma_wait<S_SETS - 1>();
+#pragma unroll
+          for (int i = 0; i < NS; ++i) sc[i] += acc[set][i];
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split(raw[e] * p.inv_temp, fb[set][e], fs[set][e]);
+        // the next k-step's Q words; after the last, the stage is free
+        if (kk + 1 < 4)
+          load_q(raw, st, kk + 1);
+        else
+          mbar_arrive(empty(rg, s));
+        const uint64_t at = kd + 2 * kk;  // + 32 bytes a k-step
+        wgmma_fence();
+        wgmma_tf32(acc[set], fs[set], at, 0);
+        wgmma_tf32(acc[set], fb[set], at + (kBox >> 4), 1);
+        wgmma_tf32(acc[set], fb[set], at, 1);
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int x = 0; x < S_SETS; ++x)
+#pragma unroll
+        for (int i = 0; i < NS; ++i) sc[i] += acc[(4 + x) % S_SETS][i];
+    }
+
+    // + bias, -inf where the key is past L or of another head; the row
+    // softmax in f32.  Row r of the tile is row r % R of head h0 + r / R.
+    // The bias is loaded whole first, each load from a valid address, so
+    // that its loads are in flight together.
+    int head_r[2];
+    bool row_live[2];
+    const float* bias_row[2];
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int r = r0 + 8 * x, row_l = r & (R - 1);
+      head_r[x] = r >> hs;
+      const int h = h0 + head_r[x];
+      row_live[x] = h < p.H && row_l < L;
+      bias_row[x] = p.bias + (row_live[x]
+                              ? (static_cast<long long>(h) * L + row_l) * L
+                              : 0);
+    }
+    if (p.bias) {
+      float bv[NS];
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int key_l = (8 * (i >> 2) + 2 * t + (i & 1)) & (R - 1);
+        bv[i] = __ldg(bias_row[(i >> 1) & 1] + (key_l < L ? key_l : 0));
+      }
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+        if (row_live[(i >> 1) & 1]) sc[i] += bv[i];
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int x = (i >> 1) & 1;
+      const int key = 8 * (i >> 2) + 2 * t + (i & 1);
+      if (key >> hs != head_r[x] || (key & (R - 1)) >= L) sc[i] = -INFINITY;
+      mx[x] = fmaxf(mx[x], sc[i]);
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int x = 0; x < 2; ++x) mx[x] = quad_max(mx[x]);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      sc[i] = expf(sc[i] - mx[(i >> 1) & 1]);
+      sum[(i >> 1) & 1] += sc[i];
+    }
+#pragma unroll
+    for (int x = 0; x < 2; ++x) sum[x] = quad_sum(sum[x]);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sc[i] = sc[i] / sum[(i >> 1) & 1];
+
+    // O = P·V a 32-column chunk at a time, stored as each is done
+#pragma unroll 1
+    for (int c = 0; c < p.n_chunks; ++c, ++it) {
+      const int s = it % S;
+      const char* const st = ring + s * kStage;
+      mbar_wait(full(rg, s), (it / S) & 1);
+      char* const vs = split_buf + (it % SPLITS) * kSplit;
+      split_v<M, NK>(st, vs, split_tid);
+      fence_async_smem();
+      split_sync<NC>(wg);
+      mbar_arrive(empty(rg, s));
+
+      // o[i] is row r0 + 8((i >> 1) & 1), column 32c + 8(i >> 2) + 2t +
+      // (i & 1); each k-step's three products summed from zero (O_SETS of
+      // them in flight), then added to o in IEEE f32
+      float o[16], acc[O_SETS][16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) o[i] = 0.f;
+#pragma unroll
+      for (int x = 0; x < O_SETS; ++x)
+#pragma unroll
+        for (int i = 0; i < 16; ++i) acc[x][i] = 0.f;
+      uint32_t pb[O_SETS][4], ps[O_SETS][4];
+      const uint64_t vd = desc(smem_u32(vs), 16, 1024);
+#pragma unroll
+      for (int j = 0; j < NK / 8; ++j) {
+        const int set = j % O_SETS;
+        if (j >= O_SETS) {
+          wgmma_wait<O_SETS - 1>();
+#pragma unroll
+          for (int i = 0; i < 16; ++i) o[i] += acc[set][i];
+        }
+        // keys 8j + 2t -> k-slot t, 8j + 2t + 1 -> k-slot t + 4
+        split(sc[4 * j + 0], pb[set][0], ps[set][0]);
+        split(sc[4 * j + 2], pb[set][1], ps[set][1]);
+        split(sc[4 * j + 1], pb[set][2], ps[set][2]);
+        split(sc[4 * j + 3], pb[set][3], ps[set][3]);
+        const uint64_t at = vd + (((j >> 2) * kVSub + (j & 3) * 32) >> 4);
+        wgmma_fence();
+        wgmma_tf32(acc[set], ps[set], at, 0);
+        wgmma_tf32(acc[set], pb[set], at + (kBox >> 4), 1);
+        wgmma_tf32(acc[set], pb[set], at, 1);
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      // the last k-step of each set, in order
+#pragma unroll
+      for (int x = 0; x < O_SETS; ++x)
+#pragma unroll
+        for (int i = 0; i < 16; ++i) o[i] += acc[(NK / 8 + x) % O_SETS][i];
+
+      // into a staging box (row r's 16-byte chunk at chunk ^ (r % 8), as
+      // TMA reads it) once the store before the last STAGING has read it,
+      // then one bulk tensor store
+      char* const buf = my_staging + (n_stores % STAGING) * kOBox;
+      if (tid == 0) bulk_wait_read<STAGING - 1>();
+      wg_sync(wg);
+#pragma unroll
+      for (int i = 0; i < 16; i += 2) {
+        const int r = 16 * warp + g + 8 * ((i >> 1) & 1);
+        const int chunk = (2 * (i >> 2) + (t >> 1)) ^ (r & 7);
+        *reinterpret_cast<float2*>(buf + r * kRowBytes + (chunk << 4) +
+                                   8 * (t & 1)) = make_float2(o[i], o[i + 1]);
+      }
+      fence_async_smem();
+      wg_sync(wg);
+      if (tid == 0) {
+        tma_store(&to, smem_u32(buf), kCols * c, 64 * wr, h0, b);
+        bulk_commit();
+      }
+      ++n_stores;
+    }
+  }
+  if (tid == 0) bulk_wait_all();
+}
+
+// ------------------------------------------------------------------ host
+
+struct Plan {
+  int nc;         // consumer warpgroups a tile
+  int head_rows;  // R
+  int heads;      // G
+  int keys;       // NK
+  int threads;    // a block
+  int rings;      // tiles in flight a block, a ring each
+  int stages;     // of each ring
+  int smem;       // dynamic shared memory bytes
+};
+
+template <int NC>
+void shape(Plan* pl) {
+  using S = Shape<NC>;
+  const int box = 64 * NC * kRowBytes;
+  const int stage = 2 * box + 2 * 8;  // Q and K boxes, full and empty
+  const int fixed =
+      S::RINGS * S::SPLITS * 2 * box + S::CW * S::STAGING * kOBox;
+  pl->threads = S::THREADS;
+  pl->rings = S::RINGS;
+  pl->stages = (kMaxSmem - fixed) / (S::RINGS * stage);
+  if (pl->stages > kMaxStages) pl->stages = kMaxStages;
+  pl->smem = S::RINGS * pl->stages * stage + fixed;
+}
+
+// the launch geometry at L, D: 64-row tiles of 64/R heads of R = 16, 32 or
+// 64 rows, three in flight a block, or one head of 128 rows over both
+// consumer warpgroups; as many ring stages, up to kMaxStages, as fit beside
+// the split buffers, the staging boxes and the barriers.  A stage holds a
+// 32-column chunk, so the geometry does not depend on D.  False where the
+// kernel does not take the shape.
+bool plan(int L, int D, Plan* pl) {
+  if (L < 1 || L > kMaxL || D < kCols || D > kMaxD || D % kCols) return false;
+  pl->head_rows = L <= 16 ? 16 : L <= 32 ? 32 : L <= 64 ? 64 : 128;
+  pl->heads = pl->head_rows <= 64 ? 64 / pl->head_rows : 1;
+  pl->nc = pl->head_rows == 128 ? 2 : 1;
+  pl->keys = pl->heads == 1 ? 8 * ((L + 7) / 8) : 64;
+  if (pl->nc == 1)
+    shape<1>(pl);
+  else
+    shape<2>(pl);
+  return pl->stages >= 2;
+}
+
+template <int NC, int NK>
+int run(const Params& p, int grid, int smem, const CUtensorMap& tq,
+        const CUtensorMap& tk, const CUtensorMap& tv, const CUtensorMap& to,
+        cudaStream_t stream) {
+  auto kernel = attention_fwd_kernel<NC, NK>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, Shape<NC>::THREADS, smem, stream>>>(p, tq, tk, tv, to);
   return static_cast<int>(cudaGetLastError());
 }
 
-using Launcher = int (*)(const Args&, cudaStream_t);
-constexpr Launcher kLaunchers[kMaxKeyTiles] = {
-    launch<1>,  launch<2>,  launch<3>,  launch<4>,  launch<5>,  launch<6>,
-    launch<7>,  launch<8>,  launch<9>,  launch<10>, launch<11>, launch<12>,
-    launch<13>, launch<14>, launch<15>, launch<16>};
+using Runner = int (*)(const Params&, int, int, const CUtensorMap&,
+                       const CUtensorMap&, const CUtensorMap&,
+                       const CUtensorMap&, cudaStream_t);
+// by NK / 8: 64-row tiles of one head at L in (32, 64] or of 4 or 2 heads
+// (NK = 64), 128-row tiles at L in (64, 128]
+constexpr Runner kRunners[17] = {
+    nullptr,      nullptr,      nullptr,      nullptr,      nullptr,
+    run<1, 40>,   run<1, 48>,   run<1, 56>,   run<1, 64>,   run<2, 72>,
+    run<2, 80>,   run<2, 88>,   run<2, 96>,   run<2, 104>,  run<2, 112>,
+    run<2, 120>,  run<2, 128>};
 
 }  // namespace
 
@@ -400,22 +585,67 @@ constexpr Launcher kLaunchers[kMaxKeyTiles] = {
 extern "C" int lstc_attention_fwd(const void* q, const void* k, const void* v,
                                   const void* bias, void* out,
                                   const long long* strides, int B, int H,
-                                  int L, int D, int pairs_per_block,
-                                  float temperature, void* stream) {
-  if (B < 1 || H < 1 || L < 1 || L > 8 * kMaxKeyTiles || D < kChunk ||
-      D > kMaxD || D % kChunk || pairs_per_block < 1)
+                                  int L, int D, float temperature,
+                                  void* stream) {
+  Plan pl;
+  if (B < 1 || H < 1 || !plan(L, D, &pl) || !(temperature > 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{static_cast<const float*>(q), static_cast<const float*>(k),
-         static_cast<const float*>(v), static_cast<const float*>(bias),
-         static_cast<float*>(out), {}, B * H, pairs_per_block, H, L, D,
-         temperature};
-  for (int i = 0; i < 3; ++i) {
-    a.str.q[i] = strides[i];
-    a.str.k[i] = strides[3 + i];
-    a.str.v[i] = strides[6 + i];
-    a.str.o[i] = strides[9 + i];
-  }
-  return kLaunchers[(L + 7) / 8 - 1](a, static_cast<cudaStream_t>(stream));
+  Params p{};
+  p.bias = static_cast<const float*>(bias);
+  p.H = H;
+  p.L = L;
+  p.head_rows = pl.head_rows;
+  p.head_shift = pl.head_rows == 16 ? 4 : pl.head_rows == 32 ? 5
+                 : pl.head_rows == 64 ? 6 : 7;
+  p.heads = pl.heads;
+  p.n_hg = (H + pl.heads - 1) / pl.heads;
+  const long long n_tiles = static_cast<long long>(B) * p.n_hg;
+  if (n_tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  p.n_tiles = static_cast<int>(n_tiles);
+  p.n_chunks = D / kCols;
+  p.stages = pl.stages;
+  p.inv_temp = 1.f / temperature;
+
+  // loads: boxes of the tile's rows (R rows of G heads, or 128 rows);
+  // stores: a consumer warpgroup's 64 rows
+  const int load_rows = pl.nc == 1 ? pl.head_rows : 128;
+  const int store_rows = pl.nc == 1 ? pl.head_rows : 64;
+  CUtensorMap tq{}, tk{}, tv{}, to{};
+  if (!encode(&tq, q, D, L, H, B, strides, load_rows, pl.heads, true) ||
+      !encode(&tk, k, D, L, H, B, strides + 3, load_rows, pl.heads, true) ||
+      !encode(&tv, v, D, L, H, B, strides + 6, load_rows, pl.heads, true) ||
+      !encode(&to, out, D, L, H, B, strides + 9, store_rows, pl.heads, true))
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (p.n_tiles + pl.rings - 1) / pl.rings;
+  const int grid = blocks < sms ? blocks : sms;
+  const auto s = static_cast<cudaStream_t>(stream);
+  return kRunners[pl.keys / 8](p, grid, pl.smem, tq, tk, tv, to, s);
+}
+
+// the launch geometry at L, D: out[0] dynamic shared memory bytes, [1]
+// threads a block, [2] rows a tile, [3] heads a tile, [4] rows a head takes
+// in a tile, [5] keys the products take, [6] rings (tiles in flight a
+// block), [7] stages a ring.
+// Returns 0, or cudaErrorInvalidValue where the kernel does not take the
+// shape.
+extern "C" int lstc_attention_f32_plan(int L, int D, int* out) {
+  Plan pl;
+  if (!plan(L, D, &pl)) return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = pl.smem;
+  out[1] = pl.threads;
+  out[2] = 64 * pl.nc;
+  out[3] = pl.heads;
+  out[4] = pl.head_rows;
+  out[5] = pl.keys;
+  out[6] = pl.rings;
+  out[7] = pl.stages;
+  return 0;
 }
 
 extern "C" const char* lstc_cuda_error_string(int err) {

@@ -104,11 +104,6 @@ struct Params {
   float inv_temp;
 };
 
-// the named barrier of consumer warpgroup wg's 128 threads
-__device__ __forceinline__ void wg_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-}
-
 // NC: consumer warpgroups a tile (1: 64-row tiles, two in flight a block;
 // 2: 128-row tiles, one in flight); DB: 64-column boxes of D
 template <int NC, int DB>

@@ -130,18 +130,6 @@ struct Params {
 
 enum Kind { kQ, kK, kV };
 
-// x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero
-// (cvt.rna.tf32.f32)
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  big = tf32(x);
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
 __device__ __forceinline__ void split4(const float4& x, float4& big,
                                        float4& small) {
   uint32_t b[4], s[4];

@@ -20,9 +20,9 @@ from the shape alone:
   16-byte-aligned base and batch, head and row strides that are multiples of
   16 bytes (4 f32 or 8 bf16 elements): csrc/attention.cu (f32) or
   csrc/attention_bf16.cu (bf16), which keep a row's scores for every key in
-  registers (the bf16 one persistent, one block an SM, with Q, K, V in by
-  TMA, wgmma for both products and O out by TMA; ``bf16_plan`` reads its
-  launch geometry);
+  registers: both persistent, one block an SM, with Q, K, V in by TMA,
+  wgmma for both products (3xTF32 on TF32 wgmma for f32) and O out by TMA;
+  ``f32_plan`` and ``bf16_plan`` read their launch geometry;
 - every other shape (any L >= 1, any d_k and d_v >= 1, any strides): the
   streaming kernels, which walk the keys in tiles with the scores of one
   tile at a time on chip, both with Q, K and V brought in by TMA behind
@@ -70,7 +70,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 
@@ -80,14 +80,9 @@ from .attention import plain_sdpa, scalar_in
 OP_NAME = "lstc_vad::attention"
 # the tiled kernels (csrc/attention.cu, csrc/attention_bf16.cu) take
 # L <= MAX_L and d_k = d_v a multiple of CHUNK up to MAX_D
-MAX_L = 128       # 16 key tiles of 8 (f32); one tile of 128 rows (bf16)
+MAX_L = 128       # one tile of 128 rows
 MAX_D = 256
-CHUNK = 32        # D-columns per pipeline stage
-# shared-memory rows of the f32 route, in floats, padded against bank
-# conflicts
-ROW_FLOATS = CHUNK + 4
-STAGES = 2        # shared-memory buffers of the f32 route's copy pipeline
-BLOCK_WARPS = 4   # short sequences share a block up to this many warps
+CHUNK = 32        # D-columns of a 128-byte f32 box: a ring stage (f32)
 DTYPES = (torch.float32, torch.bfloat16)
 ROUTES = ("f32", "bf16", "f32_stream", "bf16_stream")
 
@@ -95,29 +90,6 @@ launches = 0         # every kernel
 launches_bf16 = 0    # the bf16 route, both kernels
 launches_stream = 0  # the streaming kernel, both routes
 by_route = dict.fromkeys(ROUTES, 0)
-
-
-class Tile(NamedTuple):
-    m_tiles: int     # 16-row query tiles of a pair: its warps
-    n_tiles: int     # 8-key tiles: the kernel's compile-time instantiation
-    pairs: int       # (b, h) pairs per block
-    threads: int     # of a block
-    smem_bytes: int  # dynamic shared memory of a block (all stages)
-
-
-def tile(length: int) -> Tile:
-    """The launch geometry at sequence length ``length`` (kept in step with
-    csrc/attention.cu::launch): query rows padded to 16 per warp, keys to 8;
-    a pair gets ceil(L/16) warps, and at L <= 32 a block takes as many pairs
-    as make 4 warps."""
-    if not 1 <= length <= MAX_L:
-        raise ValueError(f"attention: the kernel takes 1 <= L <= {MAX_L}, "
-                         f"got L={length}")
-    m_tiles, n_tiles = -(-length // 16), -(-length // 8)
-    pairs = max(1, BLOCK_WARPS // m_tiles)
-    rows = 16 * m_tiles + 8 * n_tiles
-    return Tile(m_tiles, n_tiles, pairs, 32 * m_tiles * pairs,
-                STAGES * 4 * pairs * rows * ROW_FLOATS)
 
 
 def route(dtype: torch.dtype, length: int, d_k: int, d_v: int,
@@ -164,10 +136,8 @@ def _kernel(dtype: torch.dtype = torch.float32):
     name, entry, errors = _ROUTES[dtype]
     lib = _build.load(name)
     fn = getattr(lib, entry)
-    # B, H, L, D, and the f32 route's pairs a block
-    n_ints = 5 if dtype == torch.float32 else 4
     fn.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * n_ints + [
+        ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn, _error_string(lib, errors)
@@ -175,6 +145,19 @@ def _kernel(dtype: torch.dtype = torch.float32):
 
 BF16_PLAN_KEYS = ("smem_bytes", "threads", "rows", "heads", "head_rows",
                   "stages")
+F32_PLAN_KEYS = ("smem_bytes", "threads", "rows", "heads", "head_rows",
+                 "keys", "rings", "stages")
+
+
+def _tiled_plan(name: str, entry: str, keys, length: int, d: int) -> dict:
+    fn = getattr(_build.load(name), entry)
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(keys))()
+    if fn(length, d, out) != 0:
+        raise ValueError(f"attention: the tiled kernel of {name}.cu does "
+                         f"not take L={length} d={d}")
+    return dict(zip(keys, out))
 
 
 def bf16_plan(length: int, d: int) -> dict:
@@ -183,14 +166,24 @@ def bf16_plan(length: int, d: int) -> dict:
     bytes and threads a block (one block an SM), query rows a tile, heads
     a tile, rows a head takes in it, and ring stages.  Builds the kernel's
     library (the geometry lives in its C source)."""
-    fn = _build.load("attention_bf16").lstc_attention_bf16_plan
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_int * len(BF16_PLAN_KEYS))()
-    if fn(length, d, out) != 0:
-        raise ValueError(f"attention: the tiled bf16 kernel does not take "
-                         f"L={length} d={d}")
-    return dict(zip(BF16_PLAN_KEYS, out))
+    return _tiled_plan("attention_bf16", "lstc_attention_bf16_plan",
+                       BF16_PLAN_KEYS, length, d)
+
+
+def f32_plan(length: int, d: int) -> dict:
+    """The tiled f32 kernel's launch geometry at L = ``length`` and
+    d_k = d_v = ``d``, as its launcher computes it: dynamic shared memory
+    bytes and threads a block (one block an SM), query rows a tile, heads
+    a tile, rows a head takes in it, keys the products take (8·ceil(L/8)
+    with one head a tile), rings (tiles in flight a block) and stages a
+    ring.  Raises for a shape the kernel does not take, the length
+    checked before the kernel's library is built (the geometry lives in its
+    C source)."""
+    if not 1 <= length <= MAX_L:
+        raise ValueError(f"attention: the tiled f32 kernel takes 1 <= L <= "
+                         f"{MAX_L}, got L={length}")
+    return _tiled_plan("attention", "lstc_attention_f32_plan",
+                       F32_PLAN_KEYS, length, d)
 
 
 # the same for each streaming route
@@ -326,15 +319,13 @@ def _raise_failed(rc, error_string, q, v, name):
 def _launch_tiled(q, k, v, bias, temperature, out, strides, name):
     b, h, length, d = q.shape
     fn, error_string = _kernel(q.dtype)
-    # the f32 route takes its pairs a block; the bf16 one plans in C
-    pairs = (tile(length).pairs,) if name == "f32" else ()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         # the bf16 route scales by the temperature rounded as plain_sdpa
         # rounds it (16 at every preset: exact)
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 bias.data_ptr() if bias is not None else None,
-                out.data_ptr(), strides, b, h, length, d, *pairs,
+                out.data_ptr(), strides, b, h, length, d,
                 scalar_in(float(temperature), q.dtype), stream)
     if rc != 0:
         _raise_failed(rc, error_string, q, v, name)

@@ -1,44 +1,45 @@
-"""What holds the attention kernel back: altered builds timed on the card.
+"""What holds the tiled f32 attention kernel back: altered builds and a copy
+probe, timed on the card.
 
-    python3 scripts/torch_attention_ablation.py [--reps 3]
+    python3 scripts/torch_attention_ablation.py [--reps 2]
 
 Builds lstc_vad_tpu_torch/csrc/attention.cu (the tiled f32 kernel, which
-every shape below routes to) as it is and in altered copies
-(one nvcc each, started together, into lstc_vad_tpu_torch/_build/ablation/),
-then times each build through the package's wrapper at the main path's shape
-(B=924, H=8, L=49, D=256, bias, q/k/v strided as the encoder passes them)
-and at L=17, 81 and 128 (B=256), in turns, ``--reps`` times.  The altered
-builds are diagnostics, and the ones marked so compute wrong values on
-purpose (only times are compared here; chip_smoke.py checks the kernel):
+every shape below routes to) as it is and in altered copies (one nvcc each,
+started together, into lstc_vad_tpu_torch/_build/ablation/), then times each
+build through the package's operator at the main path's shape (B=924, L=49)
+and at L = 17, 49, 81 and 128 (B=256), H=8, D=256, with bias, q, k, v
+strided as the encoder passes them; builds in turns, ``--reps`` times.  The
+builds marked so compute wrong values on purpose (only times are compared
+here; chip_smoke.py and the card tests check the kernel):
 
 - ``as_is``: the kernel.
-- ``no_mma`` (wrong values): the three tensor-core products of each 3xTF32
-  step replaced by a few ALU instructions on the same operands.
-- ``one_mma`` (wrong values): only big·big, the cost of single-pass TF32.
-- ``no_split`` (wrong values): operands passed to the tensor cores unsplit.
-- ``chained``: each 3xTF32 step accumulated on the tensor core into the
-  running sum, not summed from zero and added in IEEE f32.
-- ``three_stages``: a third shared-memory buffer in the copy pipeline.
-- ``four_blocks``: the register cap at 4 blocks an SM up to L=64, not 6.
-- ``uncapped``: no register cap (ptxas's own choice).
+- ``copy_probe`` (wrong values): the same persistent blocks, rings, TMA
+  boxes and barriers, with no arithmetic: each chunk is waited for and
+  released, and each V box is stored to out's map by TMA.  It reads exactly
+  q, k, v and writes out: the floor the layout allows.
+- ``no_split`` (wrong values): the landed K and V chunks not split into
+  their TF32 halves (the products read the split buffers as they are).
+- ``no_products`` (wrong values): neither product issued.
+- ``no_softmax`` (wrong values): S taken as P, with no mask, bias,
+  exponential or division.
+- ``one_tile_in_flight``, ``two_tiles_in_flight``: at 64-row tiles one
+  consumer warpgroup takes every tile from one ring, the other two idle; or
+  two consumer warpgroups, a ring each, in a block of 384 threads (the
+  kernel has three; at 128-row tiles both consumer warpgroups take one tile
+  in every build).
 
-It prints ptxas's registers and spills of each build, one JSON line per
-build and shape (the mean ms of 20 calls per
-repetition; for the builds that compute the function, also the largest
-error against float64 at L=49 with q scaled by 1 and by 30, from
-scripts/torch_attention_accuracy.py), then the SASS opcode counts of the
-L=49 instantiation of the kernel as it is (cuobjdump, where the toolkit has
-it).  Needs one CUDA card and nvcc.
+It prints ptxas's registers and spills of each build, then one JSON line per
+build and shape (the mean ms of 20 calls per repetition, the bound and the
+launch geometry) and, for the builds that compute the function, the largest
+error against plain_sdpa.  Needs one CUDA card and nvcc.
 """
 
 from __future__ import annotations
 
 import argparse
-import collections
 import ctypes
 import json
 import os
-import re
 import subprocess
 import sys
 
@@ -46,106 +47,122 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-MMA3 = """  mma(p, a_small, b_big);
-  mma(p, a_big, b_small);
-  mma(p, a_big, b_big);"""
-# build name -> (source substitutions, whether it computes the function)
-ABLATIONS = {
+from torch_tiled_bf16_ablation import inputs, replace  # noqa: E402
+
+PROBE = """    {  // copy probe: no arithmetic
+      for (int x = 0; x < 2 * p.n_chunks; ++x, ++it) {
+        const int s = it % S;
+        const char* const st = ring + s * kStage;
+        mbar_wait(full(rg, s), (it / S) & 1);
+        if (x >= p.n_chunks && tid == 0) {
+          tma_store(&to, smem_u32(st + wr * kOBox),
+                    kCols * (x - p.n_chunks), 64 * wr, h0, b);
+          bulk_commit();
+          bulk_wait_read<0>();
+        }
+        wg_sync(wg);
+        mbar_arrive(empty(rg, s));
+      }
+      continue;
+    }
+"""
+S_ANCHOR = "    // S = (Q / temperature)·K^T over the chunks of D; sc[i] is row\n"
+S_PRODUCTS = """        wgmma_tf32(acc[set], fs[set], at, 0);
+        wgmma_tf32(acc[set], fb[set], at + (kBox >> 4), 1);
+        wgmma_tf32(acc[set], fb[set], at, 1);"""
+PV_PRODUCTS = """        wgmma_tf32(acc[set], ps[set], at, 0);
+        wgmma_tf32(acc[set], pb[set], at + (kBox >> 4), 1);
+        wgmma_tf32(acc[set], pb[set], at, 1);"""
+SOFTMAX_START = "    // + bias, -inf where the key is past L or of another head; the row\n"
+SOFTMAX_END = "    // O = P·V a 32-column chunk at a time, stored as each is done\n"
+
+
+def cut_softmax(src: str) -> str:
+    """S taken as P: the mask, bias, max, exponentials, sums and divisions
+    cut out (the bias loads go with them)."""
+    i, j = src.index(SOFTMAX_START), src.index(SOFTMAX_END)
+    return src[:i] + src[j:]
+
+
+def one_ring(src: str) -> str:
+    """One tile in flight a block at 64-row tiles: one ring and one consumer
+    warpgroup, the other two idle (the plan follows: up to 4 stages)."""
+    src = replace("  static constexpr int RINGS = CW / NC;",
+                  "  static constexpr int RINGS = NC == 1 ? 1 : CW / NC;")(src)
+    return replace("  const int rg = NC == 1 ? wg : 0, wr = NC == 1 ? 0 : wg;\n",
+                   "  const int rg = NC == 1 ? wg : 0, wr = NC == 1 ? 0 : wg;\n"
+                   "  if (NC == 1 && wg > 0) return;\n")(src)
+
+
+# build -> (source edits, whether it computes the function)
+BUILDS = {
     "as_is": ([], True),
-    "no_mma": ([(MMA3, "\n".join(
-        f"  p[{i}] = __uint_as_float(a_big[{i}] ^ b_big[{i % 2}])"
-        f" + __uint_as_float(a_small[{i}] ^ b_small[{i % 2}]);"
-        for i in range(4)))], False),
-    "one_mma": ([(MMA3, """  mma(p, a_big, b_big);
-  p[0] += __uint_as_float(a_small[0] ^ b_small[0]);""")], False),
-    "no_split": ([("""  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));""", """  big = __float_as_uint(x);
-  small = big;""")], False),
-    "chained": ([("""  float p[4] = {0.f, 0.f, 0.f, 0.f};
-  mma(p, a_small, b_big);
-  mma(p, a_big, b_small);
-  mma(p, a_big, b_big);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] += p[i];""", """  mma(d, a_small, b_big);
-  mma(d, a_big, b_small);
-  mma(d, a_big, b_big);""")], True),
-    "three_stages": ([("constexpr int kStages = 2;",
-                       "constexpr int kStages = 3;")], True),
-    "four_blocks": ([("NT <= 6 ? 4 : NT <= 8 ? 6 : 2)",
-                      "NT <= 6 ? 4 : NT <= 8 ? 4 : 2)")], True),
-    "uncapped": ([("""__launch_bounds__(block_threads<NT>(),
-                                  NT <= 6 ? 4 : NT <= 8 ? 6 : 2)""",
-                   "__launch_bounds__(block_threads<NT>())")], True),
+    "copy_probe": ([replace(S_ANCHOR, PROBE + S_ANCHOR)], False),
+    "no_split": ([replace("      split_k<M, NK>(st + kBox, ks, split_tid);\n",
+                          ""),
+                  replace("      split_v<M, NK>(st, vs, split_tid);\n", "")],
+                 False),
+    "no_products": ([replace(S_PRODUCTS, "        (void)at;"),
+                     replace(PV_PRODUCTS, "        (void)at;")], False),
+    "no_softmax": ([cut_softmax], False),
+    "one_tile_in_flight": ([one_ring], True),
+    "two_tiles_in_flight": ([replace(
+        "  static constexpr int CW = NC == 1 ? 3 : 2;",
+        "  static constexpr int CW = 2;")], True),
 }
-SHAPES = [(924, 49), (256, 17), (256, 81), (256, 128)]
+SHAPES = [(924, 49), (256, 17), (256, 49), (256, 81), (256, 128)]
 
 
-def build_all(out_dir: str):
-    """({build: loaded library}, {build: nvcc's output})."""
+def build_all(out_dir: str, builds=BUILDS):
+    """({build: loaded library}, {build: nvcc output}) of each of
+    ``builds``."""
     from lstc_vad_tpu_torch.ops import _build
 
-    src = open(os.path.join(_build.CSRC_DIR, "attention.cu")).read()
     os.makedirs(out_dir, exist_ok=True)
+    src = open(os.path.join(_build.CSRC_DIR, "attention.cu")).read()
     procs = {}
-    for name, (subs, _) in ABLATIONS.items():
+    for name, (edits, _) in builds.items():
         text = src
-        for old, new in subs:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: the source no longer holds "
-                                   f"{old.splitlines()[0]!r}")
-            text = text.replace(old, new)
-        cu = os.path.join(out_dir, f"{name}.cu")
+        for edit in edits:
+            text = edit(text)
+        cu = os.path.join(out_dir, f"f32_{name}.cu")
         with open(cu, "w") as f:
             f.write(text)
         procs[name] = subprocess.Popen(
-            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o",
-             os.path.join(out_dir, f"{name}.so"), cu],
+            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I",
+             str(_build.CSRC_DIR), "-o",
+             os.path.join(out_dir, f"f32_{name}.so"), cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs, logs = {}, {}
     for name, proc in procs.items():
         logs[name] = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n{logs[name]}")
-        libs[name] = ctypes.CDLL(os.path.join(out_dir, f"{name}.so"))
+        libs[name] = ctypes.CDLL(os.path.join(out_dir, f"f32_{name}.so"))
     return libs, logs
 
 
-def use(lib):
-    """Point the package's wrapper at one build."""
+def use(lib, original):
+    """Point the package's tiled f32 launcher at one build."""
+    import torch
+
     from lstc_vad_tpu_torch.ops import cuda_attention
 
     fn = lib.lstc_attention_fwd
     fn.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.lstc_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.lstc_cuda_error_string.restype = ctypes.c_char_p
-    cuda_attention._kernel = lambda dtype=None: (
-        fn, lib.lstc_cuda_error_string)
-
-
-def sass_histogram(so_path: str, n_tiles: int):
-    from lstc_vad_tpu_torch.ops import _build
-
-    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
-    if not os.path.exists(tool):
-        return None
-    sass = subprocess.run([tool, "-sass", so_path], capture_output=True,
-                          text=True, check=True).stdout
-    for func in re.split(r"\n\s+Function : ", sass)[1:]:
-        if f"ILi{n_tiles}E" in func.split("\n", 1)[0]:
-            ops = collections.Counter(
-                m.group(1).split(".")[0] for m in re.finditer(
-                    r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
-                    func))
-            return dict(ops.most_common())
-    return None
+    err = lib.lstc_cuda_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    cuda_attention._kernel = lambda dtype=torch.float32: (
+        (fn, err) if dtype == torch.float32 else original(dtype))
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--reps", type=int, default=3)
+    p.add_argument("--reps", type=int, default=2)
     args = p.parse_args(argv)
 
     import torch
@@ -154,50 +171,43 @@ def main(argv=None) -> int:
         print("torch_attention_ablation: no CUDA card", file=sys.stderr)
         return 2
     import chip_smoke
-    import torch_attention_accuracy
     from lstc_vad_tpu_torch.ops import _build, cuda_attention
-    from lstc_vad_tpu_torch.ops.cuda_attention import attention
+    from lstc_vad_tpu_torch.ops.attention import plain_sdpa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = chip_smoke.card_line()
-    out_dir = os.path.join(_build.BUILD_DIR, "ablation")
-    libs, logs = build_all(out_dir)
-    for name, log in logs.items():  # registers and spills per key-tile count
-        print(json.dumps({"build": name,
-                          "ptxas": list(chip_smoke.ptxas_lines(log))}))
+    print(card)
+    libs, logs = build_all(os.path.join(_build.BUILD_DIR, "ablation"))
+    for name, log in logs.items():
+        for line in chip_smoke.ptxas_lines(log):
+            print(f"  {name}: {line}")
     dev = torch.device("cuda")
-    times = collections.defaultdict(list)
-    inputs = {}
-    for b, length in SHAPES:  # as the encoder passes them
-        g = torch.Generator(device=dev).manual_seed(b * 1000 + length)
-        q, k, v = (torch.randn(b, length, chip_smoke.H, chip_smoke.D,
-                               device=dev, generator=g).transpose(1, 2)
-                   for _ in range(3))
-        bias = torch.randn(chip_smoke.H, length, length, device=dev,
-                           generator=g)
-        # every shape is one the tiled f32 kernel takes, the one altered
-        assert cuda_attention.route(q.dtype, length, chip_smoke.D,
-                                    chip_smoke.D, True) == "f32"
-        inputs[(b, length)] = (q, k, v, bias)
-    for _ in range(args.reps):
-        for name, lib in libs.items():
-            use(lib)
-            for shape, (q, k, v, bias) in inputs.items():
-                times[(name, *shape)].append(chip_smoke.cuda_ms(
-                    lambda: attention(q, k, v, bias, 16.0)))
-    errors = {}
-    for name, lib in libs.items():
-        if ABLATIONS[name][1]:
-            use(lib)
-            errors[name] = {scale: torch_attention_accuracy.measure(
-                49, scale)["kernel_max_abs_err"] for scale in (1, 30)}
-    for (name, b, length), ms in times.items():
-        print(json.dumps({"build": name, "B": b, "L": length, "ms": ms,
-                          "computes_the_function": ABLATIONS[name][1],
-                          "err_vs_f64_L49_by_q_scale": errors.get(name),
-                          "card": card}))
-    print(json.dumps({"sass_opcodes_L49": sass_histogram(
-        os.path.join(out_dir, "as_is.so"), 7), "card": card}))
+    original = cuda_attention._kernel
+    for b, length in SHAPES:
+        q, k, v, bias = inputs(b, length, torch.float32, dev)
+        assert cuda_attention.route(q.dtype, length, 256, 256, True) == "f32"
+        ref = plain_sdpa(q, k, v, 16.0, bias=bias)
+        times = {name: [] for name in BUILDS}
+        errs = {}
+        for _ in range(args.reps):
+            for name in BUILDS:
+                use(libs[name], original)
+                out = cuda_attention.attention(q, k, v, bias, 16.0)
+                torch.cuda.synchronize()
+                if BUILDS[name][1]:
+                    errs[name] = (out - ref).abs().max().item()
+                times[name].append(chip_smoke.cuda_ms(
+                    lambda: cuda_attention.attention(q, k, v, bias, 16.0)))
+        cuda_attention._kernel = original
+        bound_ms, bound_by = chip_smoke.bound(b, length, True)
+        plan = cuda_attention.f32_plan(length, 256)
+        for name, ms in times.items():
+            print(json.dumps({
+                "build": name, "B": b, "H": 8, "L": length, "D": 256,
+                "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "plan": plan, "max_abs_err_vs_plain": errs.get(name),
+                "card": card}), flush=True)
+        del q, k, v, bias, ref
     return 0
 
 

@@ -27,6 +27,8 @@ from lstc_vad_tpu.ops.pallas_attention import pallas_sdpa
 from lstc_vad_tpu_torch.ops import cuda_attention
 from lstc_vad_tpu_torch.ops.attention import plain_sdpa, sdpa
 
+from f32_tiled_plan import MAX_STAGES, SMEM_LIMIT, f32_plan
+
 RTOL, ATOL = 2e-5, 2e-6
 LENGTHS = (10, 17, 19, 28, 49, 81)  # STN 9/16 patches, UCF eval/train, SHT, UBnormal
 
@@ -158,16 +160,17 @@ def test_dropout_changes_output_only_when_active():
 
 
 def test_kernel_length_limit():
-    """The tiled kernel covers L <= 128 (16 key tiles); past that the
-    wrapper's checks still take the shape, at every D, and route it to the
-    streaming kernel, whose tiles have no length limit."""
+    """The tiled kernel covers L <= 128 (one tile of 128 rows); past that
+    the wrapper's checks still take the shape, at every D, and route it to
+    the streaming kernel, whose tiles have no length limit.  The tiled
+    kernel's plan refuses L = 129 before it builds anything."""
     for d in (32, 256):
         for length, want in ((128, "f32"), (129, "f32_stream")):
             q = torch.zeros(1, 1, length, d)
             cuda_attention._check(q, q, q, None, 16.0)
             assert cuda_attention.route(q.dtype, length, d, d, True) == want
     with pytest.raises(ValueError, match="L=129"):
-        cuda_attention.tile(129)
+        cuda_attention.f32_plan(129, 32)
 
 
 def _views(kind):
@@ -237,30 +240,61 @@ def test_route_refuses_other_types():
         cuda_attention.route(torch.float16, 49, 256, 256, True)
 
 
-# L -> (query tiles, key tiles, pairs per block, threads, shared bytes)
-TILES = {1: (1, 1, 4, 128, 27648), 10: (1, 2, 4, 128, 36864),
-         17: (2, 3, 2, 128, 32256), 19: (2, 3, 2, 128, 32256),
-         28: (2, 4, 2, 128, 36864), 49: (4, 7, 1, 128, 34560),
-         64: (4, 8, 1, 128, 36864), 65: (5, 9, 1, 160, 43776),
-         81: (6, 11, 1, 192, 52992), 128: (8, 16, 1, 256, 73728)}
+# (L, D) -> (shared bytes, threads, tile rows, heads a tile, rows a head,
+# keys, rings, stages a ring) of the tiled f32 kernel
+# (tests/f32_tiled_plan.py), at every L the old tile table held, the model
+# shapes and both sides of each tile edge
+PLANS_F32 = {
+    (1, 32): (221328, 512, 64, 4, 16, 64, 3, 3),
+    (10, 256): (221328, 512, 64, 4, 16, 64, 3, 3),
+    (16, 96): (221328, 512, 64, 4, 16, 64, 3, 3),
+    (17, 256): (221328, 512, 64, 2, 32, 64, 3, 3),
+    (19, 96): (221328, 512, 64, 2, 32, 64, 3, 3),
+    (28, 32): (221328, 512, 64, 2, 32, 64, 3, 3),
+    (32, 256): (221328, 512, 64, 2, 32, 64, 3, 3),
+    (33, 96): (221328, 512, 64, 1, 64, 40, 3, 3),
+    (49, 256): (221328, 512, 64, 1, 64, 56, 3, 3),
+    (57, 96): (221328, 512, 64, 1, 64, 64, 3, 3),
+    (64, 32): (221328, 512, 64, 1, 64, 64, 3, 3),
+    (65, 256): (229440, 384, 128, 1, 128, 72, 1, 4),
+    (81, 96): (229440, 384, 128, 1, 128, 88, 1, 4),
+    (128, 32): (229440, 384, 128, 1, 128, 128, 1, 4),
+    (128, 256): (229440, 384, 128, 1, 128, 128, 1, 4),
+}
 
 
-@pytest.mark.parametrize("length", sorted(TILES))
-def test_kernel_tile_table(length):
-    """Every model L (and the edges of the table): rows padded to 16 per
-    warp and keys to 8, at least 4 warps a block where several pairs share
-    it, and at most 64 KB of shared memory up to L=64, so that 3 blocks fit
-    on an SM."""
-    t = cuda_attention.tile(length)
-    assert tuple(t) == TILES[length]
-    assert 16 * (t.m_tiles - 1) < length <= 16 * t.m_tiles
-    assert 8 * (t.n_tiles - 1) < length <= 8 * t.n_tiles
-    assert t.threads == 32 * t.m_tiles * t.pairs <= 256
-    assert t.m_tiles * t.pairs >= 4 or t.pairs == 1
-    rows = t.pairs * (16 * t.m_tiles + 8 * t.n_tiles)
-    assert t.smem_bytes == (cuda_attention.STAGES * rows
-                            * cuda_attention.ROW_FLOATS * 4)
-    assert t.smem_bytes <= (64 * 1024 if length <= 64 else 227 * 1024)
+@pytest.mark.parametrize("length,d", sorted(PLANS_F32))
+def test_f32_plan_table(length, d):
+    """The written-out geometry at the model shapes and tile edges."""
+    assert tuple(f32_plan(length, d).values()) == PLANS_F32[length, d]
+
+
+@pytest.mark.parametrize("d", [32, 96, 256])
+@pytest.mark.parametrize("length", [1, 16, 17, 32, 33, 64, 65, 128])
+def test_f32_plan_fits_a_block(length, d):
+    """At every tile edge and a D of one, three and eight chunks: the tile
+    holds L rows of each of its heads and the products L keys of one head,
+    128 rows are in flight a block, its shared memory fits 227 KB, and one
+    more stage a ring would not, or the rings are at their 4."""
+    assert cuda_attention.route(torch.float32, length, d, d, True) == "f32"
+    p = f32_plan(length, d)
+    assert p["head_rows"] >= length and p["heads"] * p["head_rows"] in (
+        64, 128)
+    assert p["rows"] == max(64, p["head_rows"])
+    assert length <= p["keys"] <= p["rows"] and p["keys"] % 8 == 0
+    assert p["keys"] < length + 8 or p["heads"] > 1
+    assert p["rings"] * p["rows"] == (192 if p["rows"] == 64 else 128)
+    assert 2 <= p["stages"] <= MAX_STAGES
+    assert p["smem_bytes"] <= SMEM_LIMIT
+    stage = 2 * p["rows"] * 128 + 16
+    assert p["stages"] == MAX_STAGES or \
+        p["smem_bytes"] + p["rings"] * stage > SMEM_LIMIT
+
+
+def test_f32_plan_refuses_other_shapes():
+    for length, d in ((0, 64), (129, 64), (49, 16), (49, 288), (49, 48)):
+        with pytest.raises(ValueError):
+            f32_plan(length, d)
 
 
 def test_kernel_checks_take_the_encoders_strided_views():

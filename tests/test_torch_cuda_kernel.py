@@ -20,6 +20,8 @@ import torch
 from lstc_vad_tpu_torch.ops import cuda_attention
 from lstc_vad_tpu_torch.ops.attention import plain_sdpa
 
+from f32_tiled_plan import f32_plan as f32_plan_mirror
+
 pytestmark = pytest.mark.cuda
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -81,9 +83,10 @@ def test_kernel_narrow_heads(card, d, length):
 @pytest.mark.parametrize("length,pairs", [(10, 9), (16, 1), (28, 3),
                                           (31, 7)])
 def test_kernel_partial_last_block(card, length, pairs):
-    """At L <= 32 a block holds 4 or 2 (b, h) pairs; a pair count that
-    leaves the last block part empty must write no row it does not own."""
-    assert pairs % cuda_attention.tile(length).pairs
+    """At L <= 32 a tile packs 4 or 2 heads of a batch row; a pair count
+    that is not a multiple of the heads a tile (here H = 1, so every tile
+    has heads past H, zero-filled) must write no row it does not own."""
+    assert pairs % cuda_attention.f32_plan(length, 64)["heads"]
     q, k, v, bias = _inputs(card, pairs, pairs, 1, length, 64, True)
     _check_against_plain(q, k, v, bias, 8.0)
 
@@ -100,7 +103,7 @@ def test_kernel_reads_and_writes_the_encoders_layout(card, length):
     assert out.transpose(1, 2).reshape(6, length, 8 * 256)._base is not None
 
 
-@pytest.mark.parametrize("length", [10, 49, 81])
+@pytest.mark.parametrize("length", [10, 49, 81, 128])
 def test_kernel_large_logits(card, length):
     """q scaled by 30 puts the logits near ±100, past expf's overflow at
     88.7: only the row-max subtraction keeps the softmax finite.  At such
@@ -132,6 +135,120 @@ def test_kernel_raises_instead_of_falling_back(card):
         qt = torch.zeros(1, 1, 256, 49, device=card).transpose(-1, -2)
         cuda_attention.attention(qt, qt, qt, None, 16.0)
     assert cuda_attention.launches == before
+
+
+def test_f32_plan_fits_the_block(card):
+    """The tiled f32 kernel's launch geometry, read from its C source, at
+    every L and D it takes: equal to the written-out plan
+    (tests/f32_tiled_plan.py) and inside a block's 227 KB; the shapes it
+    does not take are refused."""
+    for length in range(1, 129):
+        for d in range(32, 257, 32):
+            plan = cuda_attention.f32_plan(length, d)
+            assert plan == f32_plan_mirror(length, d), (length, d, plan)
+            assert plan["smem_bytes"] <= 232448, plan
+    for length, d in ((0, 64), (129, 64), (49, 16), (49, 288), (49, 48)):
+        with pytest.raises(ValueError):
+            cuda_attention.f32_plan(length, d)
+
+
+@pytest.mark.parametrize("d", [32, 96, 256])
+@pytest.mark.parametrize("length", [1, 16, 17, 32, 33, 64, 65, 96, 127,
+                                    128])
+def test_f32_kernel_tile_edges(card, length, d):
+    """Both sides of every tile edge (4, 2 and 1 heads a 64-row tile, one
+    head over 128 rows) and of the key counts the products take, at one,
+    three and eight 32-column chunks of D, with the bias, strided."""
+    q, k, v, bias = _inputs(card, 5000 + length + d, 3, 8, length, d, True,
+                            strided=True)
+    _check_against_plain(q, k, v, bias, float(np.sqrt(d)))
+
+
+@pytest.mark.parametrize("length", [1, 10, 16, 17, 28, 32])
+@pytest.mark.parametrize("h", [1, 3, 5])
+def test_f32_kernel_packs_heads_when_h_is_not_a_multiple(card, h, length):
+    """H = 1, 3 or 5 where a tile packs 4 or 2 heads: every batch row ends
+    in a partial tile whose missing heads are zero-filled (a box of more
+    heads than the tensor has, at H = 1) and never stored; the scores
+    between packed heads are masked."""
+    heads = cuda_attention.f32_plan(length, 256)["heads"]
+    assert heads > 1 and h % heads
+    q, k, v, bias = _inputs(card, 5500 + 10 * h + length, 7, h, length, 256,
+                            True, strided=True)
+    _check_against_plain(q, k, v, bias, 16.0)
+
+
+def _sms() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.parametrize("length,b,h", [(17, 400, 3), (49, 170, 5),
+                                        (81, 50, 7)])
+def test_f32_kernel_persistent_loop(card, length, b, h):
+    """More tiles than the blocks' rings take at once (one block an SM), and
+    a tile count that is not a multiple of them, so every ring walks
+    several tiles and the last walk is partial."""
+    plan = cuda_attention.f32_plan(length, 64)
+    tiles, rings = b * -(-h // plan["heads"]), plan["rings"] * _sms()
+    assert tiles > 2 * rings and tiles % rings
+    q, k, v, bias = _inputs(card, 5700 + length, b, h, length, 64, True,
+                            strided=True)
+    _check_against_plain(q, k, v, bias, 8.0)
+
+
+@pytest.mark.parametrize("length", [10, 49, 81, 128])
+def test_f32_kernel_writes_only_its_view(card, length):
+    """out a view of heads 2-4 and columns 0-95 of an encoder-layout
+    [B, L, 8, 128] buffer filled with a guard value (q, k, v such views
+    too): the kernel's TMA stores write the view and leave every other
+    head, column and row of the buffer as it was."""
+    import ctypes
+
+    b, h, d, guard = 4, 3, 96, 7.0
+    g = torch.Generator(device=card).manual_seed(5900 + length)
+
+    def view(buf):
+        return buf[:, :, 2:2 + h, :d].transpose(1, 2)
+
+    q, k, v = (view(torch.randn(b, length, 8, 128, device=card, generator=g))
+               for _ in range(3))
+    bias = torch.randn(h, length, length, device=card, generator=g)
+    buf = torch.full((b, length, 8, 128), guard, device=card)
+    out = view(buf)
+    strides = (ctypes.c_longlong * 12)(*(
+        s for t in (q, k, v, out) for s in cuda_attention._strides(t)))
+    temp = float(np.sqrt(d))
+    cuda_attention._launch_tiled(q, k, v, bias, temp, out, strides, "f32")
+    torch.cuda.synchronize()
+    ref = plain_sdpa(q, k, v, temp, bias=bias)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    untouched = torch.ones_like(buf, dtype=torch.bool)
+    untouched[:, :, 2:2 + h, :d] = False
+    assert (buf[untouched] == guard).all()
+
+
+def test_f32_kernel_grid_past_65535_tiles(card):
+    """B·H = 65,600 one-head tiles at L = 49: the persistent loop walks
+    past the 65,535 a grid's y or z dimension would take."""
+    q, k, v, bias = _inputs(card, 6100, 8200, 8, 49, 32, True, strided=True)
+    assert 8200 * 8 > 65535
+    _check_against_plain(q, k, v, bias, float(np.sqrt(32)))
+
+
+@pytest.mark.parametrize("length", [40, 100])
+@pytest.mark.parametrize("position", range(8))
+def test_f32_kernel_key_order(card, position, length):
+    """V zero but for the keys at one position of every 8-key group, at a
+    64-row tile (L = 40) and a 128-row one (L = 100), each ending in a part
+    of a group: the kernel reads P's k-slots in the key order
+    0,2,4,6,1,3,5,7 and V^T in the same order, so a wrong permutation takes
+    another key's probability at once."""
+    q, k, v, bias = _inputs(card, 6200 + 10 * length + position, 2, 3,
+                            length, 32, True)
+    keep = (torch.arange(length, device=card) % 8 == position).float()
+    v = (v * keep[:, None]).contiguous()
+    _check_against_plain(q, k, v, bias, float(np.sqrt(32)))
 
 
 @pytest.mark.parametrize("with_bias", [False, True])
@@ -468,10 +585,6 @@ def test_bf16_kernel_streams_misaligned_strides(card):
         cuda_attention.attention(ok, ok, ok, torch.zeros(
             2, 9, 9, device=card, dtype=torch.bfloat16), 4.0)
     assert cuda_attention.launches == before
-
-
-def _sms() -> int:
-    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def test_bf16_plan_fits_the_block(card):
