@@ -205,7 +205,18 @@
    strided) against the plain version and float64 at the kernel phase's
    bars.  Prints the wall, s/step with and without the mesh, the NCCL
    version and the card.
-18. Prints each phase's wall time, one JSON line of kernels (for each of the
+18. benchmark phase, last: ``python -m lstc_vad_tpu_torch benchmark`` as a
+   subprocess on the card (benchmark.py at full published width: the SHT
+   LTN eval sweep and its batch-1 loop, STN, UBnormal, the UCF final
+   eval, host-fed eval, the pinned copy probe, serving, multi-process
+   serving, and f32 / bf16 / bf16 + SR train steps at the preset's
+   dropouts): exit 0, no ``transient_outage``, exactly the contract keys,
+   every rate finite and > 0, every ``*_mfu`` in (0, 1], flush p50 <= p99;
+   its ``benchmark launches`` line shows the tiled f32 kernel launched and
+   no other (the train steps' attention dropout takes the plain path).
+   Prints the line with the card and the phase's wall (``benchmark``
+   line).
+19. Prints each phase's wall time, one JSON line of kernels (for each of the
    four kernels, launches summed over every path above, and by path), then,
    as the last line, {"ok": true, "device": {"platform": "gpu", "kind":
    ..., "count": ...}}.
@@ -2417,6 +2428,71 @@ def run_mesh(cfg, store, test_videos, pack: str, test_txt: str, root: str,
         "card": card}, tp_rows
 
 
+BENCH_TIMEOUT = 420.0  # s; the benchmark takes one to two minutes
+BENCH_TEXT_KEYS = ("metric", "unit", "train_compute_dtype")
+
+
+def check_benchmark(stdout: str, stderr: str, device="cuda"):
+    """The benchmark's stdout and stderr -> (its JSON line, its launches
+    by route); raises on a line that is not a measurement or breaks the
+    contract, and on the card when the tiled f32 kernel did not launch or
+    another kernel did."""
+    from lstc_vad_tpu_torch.benchmark import CONTRACT_KEYS
+
+    lines = [ln for ln in stdout.splitlines() if ln.strip()]
+    if len(lines) != 1:
+        raise AssertionError(f"benchmark printed {len(lines)} stdout lines, "
+                             f"expected one: {stdout[-2000:]}")
+    line = json.loads(lines[0])
+    if line.get("transient_outage"):
+        raise AssertionError(f"benchmark reported an outage: {line}")
+    if tuple(line) != CONTRACT_KEYS:
+        raise AssertionError(f"benchmark keys {sorted(line)} are not the "
+                             f"contract's {sorted(CONTRACT_KEYS)}")
+    for key, value in line.items():
+        if key in BENCH_TEXT_KEYS:
+            continue
+        if not isinstance(value, (int, float)) or not np.isfinite(value) \
+                or value <= 0:
+            raise AssertionError(f"benchmark {key} = {value!r}: not a "
+                                 "finite positive number")
+        if key.endswith("_mfu") and value > 1:
+            raise AssertionError(f"benchmark {key} = {value} > 1")
+    if line["serving_flush_p50_ms"] > line["serving_flush_p99_ms"]:
+        raise AssertionError("benchmark flush p50 above its p99: "
+                             f"{line['serving_flush_p50_ms']} > "
+                             f"{line['serving_flush_p99_ms']}")
+    tag = "benchmark launches "
+    found = [ln[len(tag):] for ln in stderr.splitlines()
+             if ln.startswith(tag)]
+    if len(found) != 1:
+        raise AssertionError(f"benchmark printed {len(found)} launch lines")
+    launches = json.loads(found[0])
+    if device == "cuda":
+        others = {k: v for k, v in launches.items() if k != "f32"}
+        # every benchmark shape is at most 81 tokens (tiled), its eval
+        # paths are f32, and its train steps run the preset's attention
+        # dropout, which takes the plain path
+        if launches.get("f32", 0) == 0 or any(others.values()):
+            raise AssertionError(f"benchmark launches {launches}: expected "
+                                 "the tiled f32 kernel only")
+    return line, launches
+
+
+def run_benchmark(card: str, timeout: float = BENCH_TIMEOUT) -> dict:
+    """benchmark phase: ``python -m lstc_vad_tpu_torch benchmark`` on the
+    card, as a user runs it; raises on any failed check."""
+    cwd = os.path.dirname(os.path.abspath(__file__))
+    (rc, so, se, wall), = _run_all({"benchmark": ["benchmark"]}, cwd,
+                                   timeout).values()
+    if rc != 0:
+        raise AssertionError(f"benchmark exited {rc}: {se[-3000:]}")
+    line, launches = check_benchmark(so, se)
+    summary = [ln for ln in se.splitlines() if ln.startswith("sht_ltn eval")]
+    return {"line": line, "launches": launches, "wall_s": wall,
+            "summary": summary[-1] if summary else None, "card": card}
+
+
 def run_eval(encoder, head, cfg, items):
     from lstc_vad_tpu_torch.evaluation.drivers import evaluate_ltn
     from lstc_vad_tpu_torch.evaluation.scoring import PartScorer
@@ -2657,6 +2733,13 @@ def main() -> int:
                             card)
         print("export " + json.dumps(export))
         walls["export"] = time.perf_counter() - t0
+
+    # -- benchmark phase: its own process, this one's cache handed back ----
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bench = run_benchmark(card)
+    print("benchmark " + json.dumps(bench))
+    walls["benchmark"] = time.perf_counter() - t0
     print("walls " + json.dumps(walls))
 
     # launches by path, read after each path ran; the f32 route's in the
@@ -2691,6 +2774,10 @@ def main() -> int:
         "bfloat16_stream": {
         "long_A_bf16_step": long_a["steps"]["bfloat16_auto"]["by_route"][
             "bf16_stream"]}}
+    for key, name in (("float32", "f32"), ("bfloat16", "bf16"),
+                      ("float32_stream", "f32_stream"),
+                      ("bfloat16_stream", "bf16_stream")):
+        by_path[key]["benchmark"] = bench["launches"][name]
     sources = {"float32": ("attention", "attention.cu"),
                "bfloat16": ("attention_bf16", "attention_bf16.cu"),
                "float32_stream": ("attention_stream_f32",

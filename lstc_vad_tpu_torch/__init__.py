@@ -6,8 +6,8 @@ numpy, and nothing of JAX or of ``lstc_vad_tpu``.
 
 What is ported: the evaluation forward, training, pseudo labels and
 co-teaching, for SHT, UBnormal and UCF (tenCrop stores included), serving,
-AOT export, the ``.lstcpack`` data layer, every CLI subcommand but
-``benchmark``, and the train-time knobs (bf16 compute, stochastic rounding,
+AOT export, the ``.lstcpack`` data layer, the benchmark, every CLI
+subcommand, and the train-time knobs (bf16 compute, stochastic rounding,
 remat, bf16 wires for training and evaluation batches; f32 by default, and
 evaluation is f32 whatever they say), and multi-device runs (a data x model
 mesh of processes, one per device):
@@ -41,10 +41,12 @@ mesh of processes, one per device):
                     collectives, process-group set-up (``--multihost``,
                     torchrun) and the gloo rehearsal (``dryrun``).
 - ``utils``       — logging, profiling, seeding, the wire-type lookup.
+- ``benchmark``   — single-card throughput over the preset matrix at full
+                    width, one JSON line of the JAX benchmark's keys.
 - ``cli``         — ``python -m lstc_vad_tpu_torch train | gen-pseudo |
                     evaluate | coteach | export-aot | serve |
                     serve-backend | pack | validate-data | export-torch |
-                    info | profile | sweep``.
+                    info | profile | sweep | benchmark``.
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
 Importing the package imports nothing else: a serving worker (serving_mp.py)

@@ -1,5 +1,5 @@
 """CLI of the PyTorch package — the subcommands of
-lstc_vad_tpu/cli/main.py:359-1302 but ``benchmark`` (SHT, UBnormal and UCF;
+lstc_vad_tpu/cli/main.py:359-1302 (SHT, UBnormal and UCF;
 STN and LTN; tenCrop stores; features from an HDF5 file or, with
 ``--set data.pack_path=feats.lstcpack``, from a pack):
 
@@ -44,6 +44,7 @@ STN and LTN; tenCrop stores; features from an HDF5 file or, with
         --steps 5 --out prof/
     python -m lstc_vad_tpu_torch sweep --preset sht_ltn \\
         --grid optim.lr_encoder=1e-4,5e-5 --out sweep.jsonl [--rank-by test]
+    python -m lstc_vad_tpu_torch benchmark
 
 The flags are the JAX CLI's; every subcommand with the common flags takes
 ``--log-dir`` (train writes every config field there; evaluate and
@@ -52,7 +53,9 @@ machine that has it; every other subcommand reads a pack without h5py.
 ``export-aot --platforms`` is refused, since this package's artifact is
 device-portable.  Everything runs on the card unless ``--device cpu`` is
 given; a ``serve --backend`` worker takes no ``--device``: it never touches
-a device, nor imports torch.
+a device, nor imports torch; ``benchmark`` takes no option, as the JAX
+one takes none, and measures the card (benchmark.py: one JSON line, exit 1
+under an outage of the card).
 
 Multi-device runs, one process per device: ``--mesh auto|DPxTP`` (train,
 evaluate, gen-pseudo, coteach, sweep) lays the run out on a data x model
@@ -856,6 +859,14 @@ def cmd_export_torch(args):
     return 0
 
 
+def cmd_benchmark(_args):
+    """benchmark.py on the card: one JSON line; its exit code (0 after a
+    measurement, 1 after an outage line)."""
+    from .benchmark import main as bench_main
+
+    return bench_main()
+
+
 def cmd_info(args):
     """Versions, the devices and their memory, whether each native library
     is built, the presets and the ``--mesh auto`` factorization."""
@@ -1255,6 +1266,11 @@ def main(argv=None):
                          "selection AUC (train split for SHT), 'test' = best "
                          "test AUC")
     sw.set_defaults(fn=cmd_sweep)
+
+    bm = sub.add_parser("benchmark",
+                        help="single-card throughput over the preset matrix "
+                             "at full width: one JSON line (needs the card)")
+    bm.set_defaults(fn=cmd_benchmark)
 
     args = p.parse_args(argv)
     try:

@@ -207,13 +207,11 @@ def test_parser_matches_jax_on_the_multi_device_flags():
     jax_tree, port_tree = _subcommands(jax_main), _subcommands(port_main)
     flags = {"--mesh", "--multihost", "--num-processes", "--process-id"}
     for name, opts in jax_tree.items():
-        if name == "benchmark":  # not ported yet (ROADMAP A7)
-            assert name not in port_tree
-            continue
         assert opts & flags == port_tree[name] & flags, name
         assert port_tree[name] - opts <= {"--device"}, name
         assert opts - port_tree[name] == set(), name
-    assert set(port_tree) == set(jax_tree) - {"benchmark"}
+    assert set(port_tree) == set(jax_tree)
+    assert port_tree["benchmark"] == jax_tree["benchmark"]
     assert "--mesh" in port_tree["sweep"] and "--mesh" in port_tree["train"]
     assert "--multihost" in port_tree["coteach"]
 

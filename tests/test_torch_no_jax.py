@@ -32,6 +32,7 @@ def test_package_imports_no_jax_and_no_jax_package():
     assert res.returncode == 0, res.stderr
     report = json.loads(res.stdout.strip().splitlines()[-1])
     for mod in ("lstc_vad_tpu_torch.ops.cuda_attention",
+                "lstc_vad_tpu_torch.benchmark",
                 "lstc_vad_tpu_torch.evaluation.scoring",
                 "lstc_vad_tpu_torch.cli",
                 "lstc_vad_tpu_torch.objectives.losses",
