@@ -324,11 +324,14 @@ def bound(b: int, length: int, with_bias: bool, itemsize: int = 4,
 def _instantiation(entry: str) -> str:
     """A kernel instantiation's short name from its mangled entry."""
     bf16 = re.search(r"stream_bf16_kernelILi(\d+)ELi(\d+)ELi(\d+)E", entry)
+    bf16_split = re.search(r"stream_bf16_kernelILi(\d+)ELi(\d+)EE", entry)
     f32 = re.search(r"stream_tf32_kernelILi(\d+)E", entry)
     tiled = re.search(r"^_ZN\w*attention_bf16_kernelILi(\d+)ELi(\d+)E", entry)
     tiled32 = re.search(r"attention_fwd_kernelILi(\d+)ELi(\d+)E", entry)
     return (f"bf16 stream NB={bf16.group(1)} NC={bf16.group(2)} "
             f"KEYS={bf16.group(3)}" if bf16
+            else f"bf16 stream NB={bf16_split.group(1)} "
+            f"SPLIT={bf16_split.group(2)}" if bf16_split
             else f"f32 stream NVC={f32.group(1)}" if f32
             else f"bf16 NC={tiled.group(1)} DB={tiled.group(2)}" if tiled
             else f"f32 NC={tiled32.group(1)} NK={tiled32.group(2)}" if tiled32
@@ -341,10 +344,12 @@ def ptxas_lines(log: str):
     the bf16 one's 64-column boxes of D, DB, and the f32 one's keys, NK;
     the f32 streaming kernel's 128-column V chunks a pass, NVC; the bf16
     streaming kernel's 64-column O blocks a consumer warpgroup holds, NB,
-    its consumer warpgroups, NC, and its key tile, KEYS), registers, static
+    and SPLIT, 1 where its two consumer warpgroups split O's columns, 0
+    where they take two query tiles (PR 15's design: NB, its consumer
+    warpgroups, NC, and its key tile, KEYS)), registers, static
     shared memory, stack and spills; and one line per warning that ptxas
     serialized an instantiation's wgmma ("Potential Performance Loss":
-    C7514, C7515, C7518, C7520).  The kernels' dynamic shared memory is in
+    C7513-C7520).  The kernels' dynamic shared memory is in
     each kernel row's ``plan``."""
     name, spill = "?", ""
     for line in log.splitlines():

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels on bf16
 // (csrc/attention_bf16.cu, csrc/attention_stream_bf16.cu) and on f32
 // (csrc/attention.cu, csrc/attention_stream.cu): mbarriers, TMA loads and
-// stores of 4-D tensor maps, wgmma on bf16 and on TF32 with f32 sums and its
-// shared-memory descriptors, the 3xTF32 split, and the host-side encoding of
-// a tensor map through cudaGetDriverEntryPoint (no -lcuda).
+// stores of 4-D tensor maps (with an L2 cache policy, or a plain bulk copy),
+// named barriers, wgmma on bf16 and on TF32 with f32 sums and its
+// shared-memory descriptors, the operand fences that keep ptxas from
+// serializing wgmma, ex2, the 3xTF32 split, and the host-side encoding of a
+// tensor map through cudaGetDriverEntryPoint (no -lcuda).
 //
 // Layout every kernel here assumes: a box of 128 bytes a row, 64 bf16 or 32
 // f32 columns, and any number of rows, 128-byte swizzle (row r's 16-byte
@@ -50,6 +52,27 @@ __device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, int bytes) {
                : "memory");
 }
 
+// `bytes` more to arrive in the barrier's current phase, without an arrival
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// a bulk copy of `bytes` (a multiple of 16) from global to shared memory,
+// both 16-byte aligned, its completion counted on the barrier, with an L2
+// cache policy
+__device__ __forceinline__ void bulk_load_hint(uint32_t dst, const void* src,
+                                               int bytes, uint32_t bar,
+                                               uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes."
+      "L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "l"(policy)
+      : "memory");
+}
+
 // returns once the phase of parity `parity` of the barrier has completed
 __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   asm volatile(
@@ -79,6 +102,40 @@ __device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
       "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
       "r"(h), "r"(b)
+      : "memory");
+}
+
+// an L2 cache policy for loads: keep the lines (evict_last), or let them go
+// first (evict_first)
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+__device__ __forceinline__ uint64_t l2_evict_normal() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
+// tma_box with an L2 cache policy
+__device__ __forceinline__ void tma_box_hint(uint32_t dst, const CUtensorMap* map,
+                                             uint32_t bar, int col, int row,
+                                             int h, int b, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes.L2::cache_hint [%0], [%1, {%3, %4, %5, %6}], [%2], "
+      "%7;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
+      "r"(h), "r"(b), "l"(policy)
       : "memory");
 }
 
@@ -482,6 +539,60 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
         "r"(accumulate));
+}
+
+// d += A·B, A [64 x 16] in shared memory K-major, B [16 x 64] in shared
+// memory MN-major (the transpose bit): P from shared memory times V
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t a,
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// named barrier `id` over n threads: wait for all of them, or only arrive
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// 2^x on the special-function unit (ex2.approx: relative error near
+// 2^-22; results below 2^-126 flush to zero)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// an empty asm that reads and writes each register of r: the compiler may
+// move no definition or use of them across it (CUTLASS's
+// warpgroup_fence_operand).  Put after an accumulator's zero-init, it keeps
+// the zeroing from sinking to the first wgmma that reads it, past other
+// wgmma already in flight, where ptxas would serialize every wgmma (C7515)
+template <int N>
+__device__ __forceinline__ void fence_operand(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// x, hidden from the compiler: values computed from it in a loop are
+// recomputed there rather than hoisted out and held in registers
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
 }
 
 // this thread's wgmma groups but the newest N are complete

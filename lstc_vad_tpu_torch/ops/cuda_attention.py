@@ -30,8 +30,10 @@ from the shape alone:
   csrc/attention_stream.cu (f32: 3xTF32 on TF32 wgmma, one pass with an
   online softmax, the producers splitting K and V into TF32 halves and V
   into the K-major V^T that TF32 wgmma reads) and
-  csrc/attention_stream_bf16.cu (bf16: a statistics phase past one key
-  tile so that P is rounded as plain_sdpa rounds it).
+  csrc/attention_stream_bf16.cu (bf16: persistent blocks, two query tiles
+  in ping-pong, a statistics phase past one key tile so that P is rounded
+  as plain_sdpa rounds it; q, k and v through TMA alone, so a view off the
+  16-byte grid is first copied into a padded buffer, ``_padded``).
 
 q, k and v may be strided views, as the encoder passes them, with a unit
 innermost stride.  The output is a [B, H, L, d_v] view of a
@@ -212,7 +214,8 @@ STREAM_PLAN_KEYS = {
     torch.float32: ("smem_bytes", "threads", "rows", "stages", "q_resident",
                     "keys", "landing_stages"),
     torch.bfloat16: ("smem_bytes", "threads", "rows", "stages",
-                     "q_resident")}
+                     "q_resident", "keys", "row_tiles", "v_stages",
+                     "bias_stages", "persistent", "pingpong")}
 
 
 def stream_plan(dtype: torch.dtype, length: int, d_k: int, d_v: int,
@@ -221,8 +224,13 @@ def stream_plan(dtype: torch.dtype, length: int, d_k: int, d_v: int,
     computes it: dynamic shared memory bytes, threads and query rows a
     block, ring stages, and whether Q stays resident; for the f32 kernel
     also its keys a tile and its landing zones (``stages`` are then its
-    ready slots, the ring of split operands the consumers read).  Builds
-    the kernel's library (the geometry lives in its C source)."""
+    ready slots, the ring of split operands the consumers read); for the
+    bf16 kernel (``rows`` a work item, ``stages`` its K ring's) also its
+    keys a tile, the query tiles a block holds at once, its V and bias
+    rings' stages, whether blocks are persistent and whether its consumer
+    warpgroups take turns (ping-pong), mirrored in
+    tests/bf16_stream_plan.py.  Builds the kernel's library (the geometry
+    lives in its C source)."""
     name, entry, _ = _STREAM_ROUTES[dtype]
     fn = getattr(_build.load(name), entry.replace("_fwd", "_plan"))
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
@@ -247,6 +255,25 @@ def _aligned(t: torch.Tensor) -> bool:
     align = 16 // t.element_size()  # elements in 16 bytes
     return (t.data_ptr() % 16 == 0 and t.shape[-1] % align == 0
             and all(s % align == 0 for s in _strides(t)))
+
+
+def _tma_ready(t: torch.Tensor) -> bool:
+    """Whether a TMA map can describe ``t``: a 16-byte-aligned base and
+    batch, head and row strides of whole 16 bytes (any width)."""
+    align = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s % align == 0 for s in _strides(t))
+
+
+def _padded(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied into a fresh buffer with rows padded to whole 16 bytes:
+    a view of the same shape and values that a TMA map can describe.  The
+    bf16 streaming kernel reads q, k and v through TMA alone; this copy
+    takes the place of its element-by-element fallback."""
+    d = t.shape[-1]
+    align = 16 // t.element_size()
+    buf = t.new_empty(*t.shape[:-1], -(-d // align) * align)
+    buf[..., :d].copy_(t)
+    return buf[..., :d]
 
 
 def _check(q, k, v, bias, temperature):
@@ -333,7 +360,8 @@ def _launch_tiled(q, k, v, bias, temperature, out, strides, name):
 
 def _launch_stream(q, k, v, bias, temperature, out, strides, name):
     b, h, length, d = q.shape
-    vec = sum(bit for bit, t in ((1, q), (2, k), (4, v)) if _aligned(t))
+    ready = _tma_ready if name == "bf16_stream" else _aligned
+    vec = sum(bit for bit, t in ((1, q), (2, k), (4, v)) if ready(t))
     fn, error_string = _stream_kernel(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -369,6 +397,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  all(_aligned(t) for t in (q, k, v)))
     if stream_only and not name.endswith("_stream"):
         name += "_stream"
+    if name == "bf16_stream":
+        q, k, v = (t if _tma_ready(t) else _padded(t) for t in (q, k, v))
     strides = (ctypes.c_longlong * 12)(
         *_strides(q), *_strides(k), *_strides(v), *_strides(out))
     launch = _launch_stream if name.endswith("_stream") else _launch_tiled

@@ -2,6 +2,7 @@
 on the card.
 
     python3 scripts/torch_stream_ablation.py [--reps 2] [--routes f32 bf16]
+        [--shapes 0 3] [--routes bf16 bf16_pr15 --parent-csrc DIR]
 
 Builds lstc_vad_tpu_torch/csrc/attention_stream.cu (f32) and
 csrc/attention_stream_bf16.cu (bf16) as they are and in altered copies (one
@@ -34,13 +35,33 @@ f32 (csrc/attention_stream.cu):
 
 bf16 (csrc/attention_stream_bf16.cu):
 - ``as_is``: the kernel.
-- ``keys_64``: past one key tile, tiles of 64 keys (one stage, two blocks
-  an SM at d 256) where the kernel takes 32 (two stages, two blocks).
-- ``one_block``: tiles of 64 keys in one block an SM with two stages.
+- ``no_bias``: the same build called without the bias (no bias stage).
+- ``no_phase0`` (wrong values): the statistics phase cut (its second
+  Q·K^T, K and bias traffic); phase 1 then runs on m = -inf, l = 0.
+- ``no_softmax`` (wrong values): the statistics and P formed from S as it
+  is (no bias, max, exponential, sum or reciprocal).
+- ``no_products`` (wrong values): no wgmma issued.
+- ``no_pingpong``: the consumer warpgroups' turns to issue wgmma cut.
+- ``softmax_ieee``: expf and a division for every probability in place of
+  ex2 with log2 e folded and one reciprocal of l a row.
+- ``bias_rows``: the bias by a bulk copy a row at every L (TMA cut).
+- ``no_l2_hint``: the bias's evict_last and Q's evict_first L2 policies
+  replaced by evict_normal.
+- ``one_stage``: every ring at one stage.
+
+bf16_pr15 (the bf16 kernel as PR 15 left it, built from ``--parent-csrc``,
+the csrc directory of a ``git archive`` of the parent commit, so that both
+designs are timed in one call): ``as_is``, ``no_bias``, ``no_phase0``,
+``no_softmax``, ``no_products`` as above, and its layouts ``keys_64``
+(past one key tile, tiles of 64 keys, one stage, two blocks an SM at d
+256, where it takes 32) and ``one_block`` (tiles of 64 keys in one block an
+SM with two stages).
 
 It prints ptxas's registers and spills of each build, then one JSON line per
 build and shape (the mean ms of 20 calls per repetition) and, for the
-builds that compute the function, the largest error against plain_sdpa.
+builds that compute the function, the largest error against plain_sdpa
+(without the bias for ``no_bias``).  ``--shapes`` picks rows of SHAPES by
+index.
 
     python3 scripts/torch_stream_ablation.py --against-tiled [--reps 2]
 
@@ -57,6 +78,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -99,6 +121,71 @@ def cut_softmax(src: str) -> str:
             "      l[0] = l[1] = 1.f;\n" + src[j:])
 
 
+# the bf16 kernel's anchors
+BF16_FOLD = ("  __device__ __forceinline__ void fold(const float (&s)[32], "
+             "const Bias& bias) {")
+BF16_PROBS = ("pa[kk][x] = pack_bf16(prob(s[i] + b.x, r), "
+              "prob(s[i + 1] + b.y, r));")
+BF16_PROBS_F32 = ("e[i] = prob(s[i] + b.x, (i >> 1) & 1);\n"
+                  "      e[i + 1] = prob(s[i + 1] + b.y, (i >> 1) & 1);")
+BF16_EXP = "return ex2(fmaf(x, kLog2e, -bl));"
+BF16_PROB = "return exp_at(x, base[r], bl[r]) * rl[r];"
+BF16_BIAS_MODE = ("  if (bias && L % 4 == 0 && reinterpret_cast<uintptr_t>(bias) "
+                  "% 16 == 0) {")
+BF16_BIAS_POLICY = ("__device__ __forceinline__ uint64_t bias_policy() "
+                    "{ return l2_evict_last(); }")
+BF16_Q_POLICY = ("__device__ __forceinline__ uint64_t q_policy() "
+                 "{ return l2_evict_first(); }")
+BF16_TURN_WAIT = "auto turn_wait = [&] { named_sync(kTurn + wg, 2 * kWG); };"
+BF16_TURN_PASS = ("auto turn_pass = [&] { named_arrive(kTurn + 1 - wg, "
+                  "2 * kWG); };")
+BF16_STAGES = ("static const int kStages[4][3] = {{2, 2, 2}, {2, 2, 1}, "
+               "{2, 1, 1}, {1, 1, 1}};")
+
+
+def cut_wgmma(src: str) -> str:
+    """Every wgmma of the kernel's source cut (S and O stay as set)."""
+    out, n = re.subn(r"wgmma_(?:ss_mn|ss|rs)\([^;]*\);", ";", src)
+    if not n:
+        raise RuntimeError("the source no longer holds a wgmma call")
+    return out
+
+
+# the PR 15 bf16 kernel's anchors
+P15_PHASES = "for (int phase = n_tiles > 1 ? 0 : 1; phase < 2; ++phase)"
+P15_PHASES_1 = "for (int phase = 1; phase < 2; ++phase)"
+P15_FIRST = "const int first_phase = n_tiles > 1 ? 0 : 1;"
+P15_FIRST_1 = "const int first_phase = 1;"
+P15_S = """            wgmma_ss(sc, desc(qa + (kk >> 2) * kBoxBytes + off, 16, 1024),
+                     desc(ka + (kk >> 2) * kKVBox + off, 16, 1024),
+                     c > 0 || kk > 0);
+"""
+P15_PV = """            wgmma_rs(o[nb], pa[kk],
+                     desc(va + nb * kKVBox + kk * 2048, kKVBox, 1024));
+"""
+P15_LAYOUTS = "const Layout layouts[] = {{32, 2, kPairSmem}, "
+P15_SOFTMAX_START = "        // + bias, -inf past L; each row's max over the tile\n"
+P15_SOFTMAX_END = "        const uint32_t va = smem_u32(ring + s * p.stage_bytes"
+
+
+def p15_cut_softmax(src: str) -> str:
+    """S packed as P: the mask, bias, max, exponentials, sums and division
+    cut out; phase 0 only releases its stage."""
+    i, j = src.index(P15_SOFTMAX_START), src.index(P15_SOFTMAX_END)
+    return (src[:i] + """        if (phase == 0) {
+          mbar_arrive(empty(s));
+          continue;
+        }
+        constexpr int kSteps = KEYS / 16;
+        uint32_t pa[kSteps][4];
+#pragma unroll
+        for (int kk = 0; kk < kSteps; ++kk)
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            pa[kk][x] = pack_bf16(sc[8 * kk + 2 * x], sc[8 * kk + 2 * x + 1]);
+""" + src[j:])
+
+
 # route -> (source, entry, error-string function,
 #           {build: (source edits, whether it computes the function)});
 # an edit is an (old, new) pair, replaced once, or a function of the text
@@ -123,14 +210,51 @@ ABLATIONS = {
     "bf16": ("attention_stream_bf16.cu", "lstc_attention_stream_bf16_fwd",
              "lstc_cuda_stream_bf16_error_string", {
                  "as_is": ([], True),
-                 "keys_64": ([(
-                     "const Layout layouts[] = {{32, 2, kPairSmem}, ",
-                     "const Layout layouts[] = {")], True),
-                 "one_block": ([(
-                     "const Layout layouts[] = {{32, 2, kPairSmem}, ",
-                     "const Layout layouts[] = {{64, 2, kMaxSmem}, ")],
-                               True),
+                 "no_bias": (None, True),
+                 "no_phase0": ([("p.stats_phase = p.n_tiles > 1;",
+                                 "p.stats_phase = 0;")], False),
+                 "no_softmax": ([(BF16_FOLD, BF16_FOLD + "\n    return;"),
+                                 (BF16_PROBS,
+                                  "pa[kk][x] = pack_bf16(s[i], s[i + 1]);"),
+                                 (BF16_PROBS_F32, "e[i] = s[i];\n"
+                                  "      e[i + 1] = s[i + 1];")], False),
+                 "no_products": ([cut_wgmma], False),
+                 "no_pingpong": ([(BF16_TURN_WAIT,
+                                   "auto turn_wait = [&] {};"),
+                                  (BF16_TURN_PASS,
+                                   "auto turn_pass = [&] {};")], True),
+                 "softmax_ieee": ([(BF16_EXP, "return expf(x - base);"),
+                                   (BF16_PROB, "return expf(x - base[r]) / "
+                                    "l[r];")], True),
+                 "bias_rows": ([(BF16_BIAS_MODE, BF16_BIAS_MODE.replace(
+                     "if (bias &&", "if (false &&"))], True),
+                 "no_l2_hint": ([(BF16_BIAS_POLICY, BF16_BIAS_POLICY.replace(
+                     "l2_evict_last", "l2_evict_normal")),
+                                 (BF16_Q_POLICY, BF16_Q_POLICY.replace(
+                                     "l2_evict_first", "l2_evict_normal"))],
+                                True),
+                 "one_stage": ([(BF16_STAGES, "static const int kStages[4][3]"
+                                 " = {{1, 1, 1}, {1, 1, 1}, {1, 1, 1}, "
+                                 "{1, 1, 1}};")], True),
              }),
+    # the bf16 kernel as PR 15 left it (PR 10's design), built from
+    # --parent-csrc: what its time is made of, beside the rebuilt kernel's
+    "bf16_pr15": ("attention_stream_bf16.cu",
+                  "lstc_attention_stream_bf16_fwd",
+                  "lstc_cuda_stream_bf16_error_string", {
+                      "as_is": ([], True),
+                      "no_phase0": ([(P15_PHASES, P15_PHASES_1),
+                                     (P15_FIRST, P15_FIRST_1)], False),
+                      "no_bias": (None, True),
+                      "no_softmax": ([p15_cut_softmax], False),
+                      "no_products": ([(P15_S, ""), (P15_PV, ";\n")],
+                                      False),
+                      "keys_64": ([(P15_LAYOUTS,
+                                    "const Layout layouts[] = {")], True),
+                      "one_block": ([(P15_LAYOUTS,
+                                      "const Layout layouts[] = "
+                                      "{{64, 2, kMaxSmem}, ")], True),
+                  }),
 }
 # (B, H, L, d_k, d_v)
 SHAPES = [(924, 8, 49, 256, 256), (256, 8, 129, 256, 256),
@@ -138,16 +262,25 @@ SHAPES = [(924, 8, 49, 256, 256), (256, 8, 129, 256, 256),
           (924, 4, 49, 512, 384)]
 
 
-def build_all(out_dir: str, routes):
-    """({(route, build): loaded library}, {(route, build): nvcc output})."""
+def build_all(out_dir: str, routes, parent_csrc=None):
+    """({(route, build): loaded library}, {(route, build): nvcc output}).
+    The ``bf16_pr15`` route's sources (and their hopper.cuh) come from
+    ``parent_csrc``, every other route's from the package."""
     from lstc_vad_tpu_torch.ops import _build
 
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
     for route in routes:
         source, _, _, builds = ABLATIONS[route]
-        src = open(os.path.join(_build.CSRC_DIR, source)).read()
+        csrc = str(_build.CSRC_DIR)
+        if route == "bf16_pr15":
+            if not parent_csrc:
+                raise SystemExit("the bf16_pr15 route needs --parent-csrc")
+            csrc = os.path.abspath(parent_csrc)
+        src = open(os.path.join(csrc, source)).read()
         for name, (edits, _) in builds.items():
+            if edits is None:  # the as_is build, called without the bias
+                continue
             text = src
             for edit in edits:
                 if callable(edit):
@@ -163,7 +296,7 @@ def build_all(out_dir: str, routes):
                 f.write(text)
             procs[route, name] = subprocess.Popen(
                 [_build.find_nvcc(), *_build.NVCC_FLAGS,
-                 "-I", str(_build.CSRC_DIR), "-o",
+                 "-I", csrc, "-o",
                  os.path.join(out_dir, f"{route}_{name}.so"), cu],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs, logs = {}, {}
@@ -202,6 +335,11 @@ def main(argv=None) -> int:
     p.add_argument("--reps", type=int, default=2)
     p.add_argument("--routes", nargs="+", default=["f32", "bf16"],
                    choices=sorted(ABLATIONS))
+    p.add_argument("--parent-csrc", default=None,
+                   help="the csrc directory of the parent's checkout (a git "
+                        "archive), for the bf16_pr15 route")
+    p.add_argument("--shapes", nargs="+", type=int, default=None,
+                   help="indices into SHAPES (default: all)")
     p.add_argument("--against-tiled", action="store_true",
                    help="time the streaming kernels against the tiled ones "
                         "at L <= 128 instead of the altered builds")
@@ -215,7 +353,7 @@ def main(argv=None) -> int:
     if args.against_tiled:
         return against_tiled(args.reps, card)
     libs, logs = build_all(os.path.join(_build.BUILD_DIR, "ablation"),
-                           args.routes)
+                           args.routes, args.parent_csrc)
     for key, log in logs.items():
         for line in chip_smoke.ptxas_lines(log):
             print(f"  {key[0]} {key[1]}: {line}")
@@ -223,7 +361,9 @@ def main(argv=None) -> int:
     original = cuda_attention._stream_kernel
     for route in args.routes:
         dtype = torch.float32 if route == "f32" else torch.bfloat16
-        for b, h, length, d_k, d_v in SHAPES:
+        shapes = (SHAPES if args.shapes is None
+                  else [SHAPES[i] for i in args.shapes])
+        for b, h, length, d_k, d_v in shapes:
             g = torch.Generator(device=dev).manual_seed(length)
             q, k = (torch.randn(b, length, h, d_k, device=dev, generator=g)
                     .to(dtype).transpose(1, 2) for _ in range(2))
@@ -232,25 +372,30 @@ def main(argv=None) -> int:
             bias = torch.randn(h, length, length, device=dev, generator=g)
             temp = float(d_k ** 0.5)
             ref = plain_sdpa(q, k, v, temp, bias=bias).float()
+            ref_no_bias = plain_sdpa(q, k, v, temp).float()
             times = {name: [] for name in ABLATIONS[route][3]}
             errs, refused = {}, {}
             for _ in range(args.reps):
                 for name in times:
                     if name in refused:
                         continue
-                    use(route, libs[route, name])
+                    edits, computes = ABLATIONS[route][3][name]
+                    use(route, libs[route, "as_is" if edits is None
+                                    else name])
+                    b_in = None if edits is None else bias
                     try:  # an altered build may find no geometry that fits
-                        out = cuda_attention.stream_attention(q, k, v, bias,
+                        out = cuda_attention.stream_attention(q, k, v, b_in,
                                                               temp)
                     except RuntimeError as e:
                         refused[name] = str(e)
                         continue
                     torch.cuda.synchronize()
-                    if ABLATIONS[route][3][name][1]:
-                        errs[name] = (out.float() - ref).abs().max().item()
+                    if computes:
+                        want = ref if b_in is not None else ref_no_bias
+                        errs[name] = (out.float() - want).abs().max().item()
                     times[name].append(chip_smoke.cuda_ms(
                         lambda: cuda_attention.stream_attention(
-                            q, k, v, bias, temp)))
+                            q, k, v, b_in, temp)))
             cuda_attention._stream_kernel = original
             for name, ms in times.items():
                 print(json.dumps({
@@ -258,7 +403,7 @@ def main(argv=None) -> int:
                     "L": length, "d_k": d_k, "d_v": d_v, "ms": ms,
                     "max_abs_err_vs_plain": errs.get(name),
                     "refused": refused.get(name), "card": card}), flush=True)
-            del q, k, v, bias, ref
+            del q, k, v, bias, ref, ref_no_bias
     return 0
 
 

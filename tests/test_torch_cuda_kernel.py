@@ -20,6 +20,8 @@ import torch
 from lstc_vad_tpu_torch.ops import cuda_attention
 from lstc_vad_tpu_torch.ops.attention import plain_sdpa
 
+from bf16_stream_plan import KEYS_OUT as BF16_STREAM_KEYS
+from bf16_stream_plan import bf16_stream_plan
 from f32_tiled_plan import f32_plan as f32_plan_mirror
 
 pytestmark = pytest.mark.cuda
@@ -1035,6 +1037,9 @@ def test_stream_plan_fits_the_block(card, widths, dtype):
             assert plan["q_resident"] == 1, plan
         if d_k >= 2048:
             assert plan["q_resident"] == 0, plan
+        if dtype == "bfloat16":
+            mirror = bf16_stream_plan(length, d_k, d_v, True)
+            assert plan == {k: mirror[k] for k in BF16_STREAM_KEYS}, plan
 
 
 @pytest.mark.parametrize("position", range(8))
@@ -1085,6 +1090,97 @@ def test_stream_kernel_grid_past_65535_blocks(card, dtype):
     q, k, v, bias = _stream_inputs(card, 11, 2750, 8, 129, 8, 8,
                                    getattr(torch, dtype), True, "strided")
     _check_stream(q, k, v, bias, float(np.sqrt(8)))
+
+
+# --------------------------------- the bf16 streaming kernel's own edges
+#
+# csrc/attention_stream_bf16.cu: persistent blocks over work items of two
+# 64-row query tiles (one a consumer warpgroup, in ping-pong) where d_v <=
+# 256, one tile with O's columns split past that; the bias by TMA where L·4
+# bytes is a multiple of 16, by a bulk copy a row elsewhere.  Each case is
+# held to the bf16 bars (_check_bf16_with).
+
+
+@pytest.mark.parametrize("length", [1, 65, 129, 320, 449])
+def test_stream_bf16_odd_tile_count(card, length):
+    """1, 3, 5, 7 and 8 64-row tiles: at an odd count the last item's
+    second consumer warpgroup holds rows past L only, computes on the zero
+    fill and stores nothing, and both warpgroups still take every turn."""
+    q, k, v, bias = _stream_inputs(card, 30 + length, 3, 5, length, 256,
+                                   256, torch.bfloat16, True, "strided")
+    _check_stream(q, k, v, bias, 16.0, forced=length <= 128)
+
+
+@pytest.mark.parametrize("widths", [(256, 256), (48, 24)],
+                         ids=["d256", "dk48_dv24"])
+@pytest.mark.parametrize("length", [63, 127, 191, 193, 255, 257, 511, 513])
+def test_stream_bf16_key_tile_edges(card, length, widths):
+    """L = 64k - 1 and 64k + 1: the last key tile one key short of full or
+    one key long, masked past L, in both phases."""
+    d_k, d_v = widths
+    q, k, v, bias = _stream_inputs(card, 40 + length, 2, 3, length, d_k, d_v,
+                                   torch.bfloat16, True, "strided")
+    _check_stream(q, k, v, bias, float(np.sqrt(d_k)), forced=length <= 128)
+
+
+@pytest.mark.parametrize("heads", [3, 4])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("length", [129, 130, 131, 132, 257])
+def test_stream_bf16_bias_rows_off_the_grid(card, length, offset, heads):
+    """Bias rows whose L·4 bytes are not a multiple of 16 (L = 129, 130,
+    131, 257) come by a bulk copy a row, each row's first key at its own
+    place in its 16-byte chunk; so does a bias whose base lies ``offset``
+    floats past a 16-byte boundary even where L = 132 would take TMA; at
+    3 and 4 heads."""
+    h = heads
+    q, k, v, _ = _stream_inputs(card, 50 + length, 2, h, length, 256, 256,
+                                torch.bfloat16, False, "strided")
+    g = torch.Generator(device=card).manual_seed(length + offset)
+    buf = torch.randn(h * length * length + 4, device=card, generator=g)
+    bias = buf[offset:offset + h * length * length].view(h, length, length)
+    assert bias.is_contiguous()
+    _check_stream(q, k, v, bias, 16.0)
+
+
+@pytest.mark.parametrize("widths", [(512, 384), (384, 512), (64, 257),
+                                    (512, 1024)],
+                         ids=["config_b", "dk384_dv512", "dk64_dv257",
+                              "dk512_dv1024"])
+@pytest.mark.parametrize("length", [1, 49, 64, 65, 129, 257])
+def test_stream_bf16_column_split(card, length, widths):
+    """d_v past 256: one 64-row tile a work item, O's columns split over
+    both consumer warpgroups, S and P computed once by warpgroup 0 and P
+    handed to warpgroup 1 through shared memory (in passes of 384 columns
+    at d_v 512 and 1024); config B's heads among them."""
+    d_k, d_v = widths
+    plan = cuda_attention.stream_plan(torch.bfloat16, length, d_k, d_v, True)
+    assert plan["row_tiles"] == 1 and plan["pingpong"] == 0
+    q, k, v, bias = _stream_inputs(card, 60 + length + d_v, 4, 4, length, d_k,
+                                   d_v, torch.bfloat16, True, "strided")
+    _check_stream(q, k, v, bias, float(np.sqrt(d_k)))
+
+
+@pytest.mark.parametrize("pairs,length", [(1, 129), (2, 65), (1, 1),
+                                          (35000, 129)])
+def test_stream_bf16_persistent_loop(card, pairs, length):
+    """Fewer work items than SMs (2, 2 and 1 items: most blocks of a
+    full grid would have none, so the grid is cut to the items) and more
+    than 65,535 (70,000 items over one block an SM)."""
+    q, k, v, bias = _stream_inputs(card, 70 + length, pairs, 1, length, 8, 8,
+                                   torch.bfloat16, True, "strided")
+    _check_stream(q, k, v, bias, float(np.sqrt(8)), forced=length <= 128)
+
+
+@pytest.mark.parametrize("length", [129, 257, 1024])
+def test_stream_bf16_late_growing_max_across_phases(card, length):
+    """At D = 256 (two query tiles a block, the bias by TMA at 1024 and by
+    rows at 129 and 257): a bias rising by 4 at every key tile, so the
+    running max of phase 0 grows at each tile and phase 1's probabilities
+    all come from the final max and sum."""
+    q, k, v, bias = _stream_inputs(card, 80 + length, 2, 4, length, 256, 256,
+                                   torch.bfloat16, True, "strided")
+    bias = bias + 4.0 * (torch.arange(length, device=card) // 64)
+    _check_stream(q, k, v, bias.contiguous(), 16.0)
 
 
 def test_routes_on_the_card_follow_the_shape(card):

@@ -12,7 +12,10 @@ take).  csrc/attention_stream
 _bf16.cu (bf16, key tiles of 64) takes the same statistics in a first
 phase, Q·K^T alone, and in a second forms P = exp(s - m) / l as plain_sdpa
 does, rounds it to bf16 and sums P·V (``two_phase``); with one key tile the
-two phases are one.  The one-pass order on bf16 (exp(s - m) rounded
+two phases are one; its softmax arithmetic takes e^(s - m) as
+2^(fma(s, log2 e, -m·log2 e)) on the special-function unit and multiplies
+by one reciprocal of l a row (``two_phase_exp2``, the error of ex2.approx
+drawn into each 2^x).  The one-pass order on bf16 (exp(s - m) rounded
 unnormalised, O / l at the end) is rehearsed too: it is closer to float64
 than plain_sdpa on average, but it rounds other values than plain_sdpa and
 on the card came out past the x1.05 bar at one shape, which is why the
@@ -149,6 +152,61 @@ def two_phase(q, k, v, bias, temperature, keys=BF16_KEYS):
     return _bf16(o)
 
 
+LOG2E = 1.4426950408889634
+# ex2.approx.ftz.f32's relative error is near 2^-22 (PTX ISA); the rehearsal
+# multiplies each 2^x by (1 + u·2^-21), u uniform in [-1, 1], twice that
+EX2_REL = 2.0 ** -21
+
+
+def _fma(a, b, c):
+    """a·b + c rounded to f32 once (the product of two f32 values is exact
+    in float64)."""
+    return (a.double() * b + c.double()).float()
+
+
+def _ex2(x, gen):
+    """2^x in f32 as ex2.approx.ftz gives it: within EX2_REL of the exact
+    value (a seeded draw of the error), results below 2^-126 flushed to
+    zero."""
+    u = torch.rand(x.shape, generator=gen, dtype=torch.float64) * 2 - 1
+    y = (torch.exp2(x.double()) * (1 + EX2_REL * u)).float()
+    return torch.where(y < 2.0 ** -126, torch.zeros_like(y), y)
+
+
+def two_phase_exp2(q, k, v, bias, temperature, keys=BF16_KEYS, seed=0):
+    """The bf16 kernel's two-phase order with its softmax arithmetic:
+    e^(s - m) as 2^(fma(s, log2 e, -bl)), bl = m·log2 e rounded to f32, on
+    the special-function unit (_ex2); P = that times one reciprocal of l a
+    row, 1/l rounded to f32, where two_phase takes expf and a division.
+    Returns f32."""
+    gen = torch.Generator().manual_seed(seed)
+    l2e = torch.tensor(LOG2E, dtype=torch.float32)
+    inv = torch.tensor(1.0, dtype=torch.float32) / scalar_in(temperature,
+                                                             q.dtype)
+    s = torch.matmul(_bf16(q.float() * inv), k.float().transpose(-1, -2))
+    if bias is not None:
+        s = s + bias
+    length = s.shape[-1]
+    m = torch.full((*s.shape[:-1], 1), -np.inf)
+    l = torch.zeros_like(m)
+    for key0 in range(0, length, keys):
+        tile = s[..., key0:key0 + keys]
+        m_new = torch.maximum(m, tile.amax(-1, keepdim=True))
+        base = torch.where(torch.isinf(m_new), torch.zeros_like(m_new), m_new)
+        bl = base * l2e
+        l = l * _ex2(_fma(m, LOG2E, -bl), gen) + _ex2(
+            _fma(tile, LOG2E, -bl), gen).sum(-1, keepdim=True)
+        m = m_new
+    base = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    bl = base * l2e
+    rl = torch.tensor(1.0, dtype=torch.float32) / l
+    o = torch.zeros(*s.shape[:-1], v.shape[-1])
+    for key0 in range(0, length, keys):
+        p = _ex2(_fma(s[..., key0:key0 + keys], LOG2E, -bl), gen) * rl
+        o = o + torch.matmul(_bf16(p), v[..., key0:key0 + keys, :].float())
+    return _bf16(o)
+
+
 def _exact(q, k, v, bias, temperature):
     s = torch.matmul((q / scalar_in(temperature, q.dtype)).double(),
                      k.double().transpose(-1, -2))
@@ -258,6 +316,53 @@ def test_bf16_kernel_order_meets_the_bf16_bars(length, seed):
     b, h = (1, 2) if length >= 257 else (2, 3)
     q, k, v, bias = _inputs(seed, b, h, length, 48, 24, torch.bfloat16)
     _check_bf16(q, k, v, bias, float(np.sqrt(48)))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("length", LENGTHS)
+def test_bf16_exp2_order_meets_the_bf16_bars(length, seed):
+    """The kernel's softmax arithmetic (2^x on the special-function unit
+    with log2 e folded into an fma, one reciprocal of l a row) in the
+    two-phase order: within the same bars as two_phase at every tile
+    count.  Splitting O's columns over two warpgroups (config B's widths)
+    changes no sum: each output column is the same P times the same V
+    column."""
+    b, h = (1, 2) if length >= 257 else (2, 3)
+    q, k, v, bias = _inputs(seed, b, h, length, 48, 24, torch.bfloat16)
+    _check_bf16(q, k, v, bias, float(np.sqrt(48)), order=two_phase_exp2)
+
+
+@pytest.mark.parametrize("length", [49, 129])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_exp2_order_at_config_b_widths(seed, length):
+    """The same at d_k 512, d_v 384 (config B): one key tile at L = 49,
+    three at 129."""
+    q, k, v, bias = _inputs(10 + seed, 1, 2, length, 512, 384,
+                            torch.bfloat16)
+    _check_bf16(q, k, v, bias, float(np.sqrt(512)), order=two_phase_exp2)
+
+
+@pytest.mark.parametrize("length", [65, 257, 1024])
+def test_bf16_exp2_order_late_growing_max(length):
+    """A bias rising by 3 at each key tile: the running max grows at every
+    tile of the statistics phase, and the bars still hold."""
+    q, k, v, bias = _inputs(20 + length, 1, 2, length, 32, 40,
+                            torch.bfloat16, growing=BF16_KEYS)
+    _check_bf16(q, k, v, bias, float(np.sqrt(32)), order=two_phase_exp2)
+
+
+def test_bf16_exp2_order_against_plain_over_seeds():
+    """Over the seeds of test_bf16_orders_against_plain_on_average: the
+    kernel's arithmetic stays within 1% of plain_sdpa's distance from
+    float64 at every seed (two_phase: 0.1%), well inside the 1.05 bar."""
+    ratios = []
+    for seed in range(8):
+        q, k, v, bias = _inputs(100 + seed, 2, 2, 129, 64, 64,
+                                torch.bfloat16)
+        ratios.append(_check_bf16(q, k, v, bias, 8.0,
+                                  order=lambda *a: two_phase_exp2(
+                                      *a, seed=seed)))
+    assert max(abs(r - 1.0) for r in ratios) < 1e-2, ratios
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
