@@ -1,0 +1,9 @@
+"""``eval.pack_idle_ms_per_pass``: device-idle ms a pass while the unit
+thread is inside ``scorer.pack``, at any depth (layer: scorers)."""
+
+from h100_bench.harness.spans import idle_under_s, per_unit_ms
+
+
+def read(run):
+    return per_unit_ms(idle_under_s(run.events, run.win, "scorer.pack"),
+                       run.units)

@@ -30,6 +30,8 @@ from typing import Iterator, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
+
 Batch = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
 
 
@@ -83,29 +85,29 @@ class Prefetcher:
 
     def _put(self, batch):
         """Runs in the worker thread: (tensors, copy event or None)."""
-        if self.mesh is not None:
-            from ..parallel.multihost import to_global
+        with annotate("batch.stage"):
+            if self.mesh is not None:
+                from ..parallel.multihost import to_global
 
-            batch = to_global(batch, self.mesh)
-        host = [torch.from_numpy(np.ascontiguousarray(a)) for a in batch]
-        dtypes = [self.feature_dtype if i in (0, 2) else h.dtype
-                  for i, h in enumerate(host)]
-        if self.device.type != "cuda":
-            return tuple(h.to(dt) for h, dt in zip(host, dtypes)), None
-        pinned = []
-        for h, dt in zip(host, dtypes):
-            p = torch.empty(h.shape, dtype=dt, pin_memory=True)
-            p.copy_(h)  # the cast, if any, in the same pass
-            pinned.append(p)
-        with torch.cuda.stream(self._stream):
-            out = tuple(p.to(self.device, non_blocking=True) for p in pinned)
-            ready = torch.cuda.Event()
-            ready.record(self._stream)
-        return out, ready
+                batch = to_global(batch, self.mesh)
+            host = [torch.from_numpy(np.ascontiguousarray(a)) for a in batch]
+            dtypes = [self.feature_dtype if i in (0, 2) else h.dtype
+                      for i, h in enumerate(host)]
+            if self.device.type != "cuda":
+                return tuple(h.to(dt) for h, dt in zip(host, dtypes)), None
+            pinned = []
+            for h, dt in zip(host, dtypes):
+                p = torch.empty(h.shape, dtype=dt, pin_memory=True)
+                p.copy_(h)  # the cast, if any, in the same pass
+                pinned.append(p)
+            with torch.cuda.stream(self._stream):
+                out = tuple(p.to(self.device, non_blocking=True)
+                            for p in pinned)
+                ready = torch.cuda.Event()
+                ready.record(self._stream)
+            return out, ready
 
     def __iter__(self):
-        if self.device.type == "cuda":
-            self._stream = torch.cuda.Stream(device=self.device)
         q: "queue.Queue" = queue.Queue(maxsize=self.depth)
         err: list = []
         stop = threading.Event()
@@ -121,7 +123,12 @@ class Prefetcher:
 
         def worker():
             try:
-                for batch in self.iterable:
+                batches = iter(self.iterable)
+                while True:
+                    with annotate("batch.build"):
+                        batch = next(batches, self._SENTINEL)
+                    if batch is self._SENTINEL:
+                        break
                     if not put(self._put(batch)):
                         return  # consumer went away: stop cleanly
             except BaseException as e:  # propagate to consumer
@@ -129,11 +136,15 @@ class Prefetcher:
             finally:
                 put(self._SENTINEL)
 
-        t = threading.Thread(target=worker, daemon=True)
-        t.start()
+        with annotate("batch.start"):
+            if self.device.type == "cuda":
+                self._stream = torch.cuda.Stream(device=self.device)
+            t = threading.Thread(target=worker, daemon=True)
+            t.start()
         try:
             while True:
-                item = q.get()
+                with annotate("batch.wait"):
+                    item = q.get()
                 if item is self._SENTINEL:
                     if err:
                         raise err[0]

@@ -14,6 +14,7 @@ from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
 
+from ..utils.profiling import annotate
 from .frame_auc import expand_scores_to_frames, ucf_expand
 from .metrics import eval_each_part, roc_auc
 from .scoring import (ClipScorer, PartScorer, UCFBinnedScorer,
@@ -50,15 +51,17 @@ def evaluate_stn(scorer: ClipScorer, items: Iterable[Item],
     """STN whole-video eval: clip scores x segment_len vs annotation head
     (Train/spatio_transformer_shanghaitech.py:133-143)."""
     items = list(items)
-    per_video = scorer.score_videos([feats for feats, _ in items])
-    all_scores, all_labels = [], []
-    for clip_scores, (_, anno) in zip(per_video, items):
-        s = np.repeat(clip_scores, segment_len)
-        lab = _frame_labels(anno, len(s))
-        all_scores.append(s[:len(lab)])
-        all_labels.append(lab)
-    return _result(all_scores, all_labels, return_scores, return_labels,
-                   compute_auc)
+    with annotate("eval.score"):
+        per_video = scorer.score_videos([feats for feats, _ in items])
+    with annotate("eval.frames"):
+        all_scores, all_labels = [], []
+        for clip_scores, (_, anno) in zip(per_video, items):
+            s = np.repeat(clip_scores, segment_len)
+            lab = _frame_labels(anno, len(s))
+            all_scores.append(s[:len(lab)])
+            all_labels.append(lab)
+        return _result(all_scores, all_labels, return_scores, return_labels,
+                       compute_auc)
 
 
 def evaluate_ltn(scorer: PartScorer, items: Iterable[Item],
@@ -67,15 +70,17 @@ def evaluate_ltn(scorer: PartScorer, items: Iterable[Item],
     """LTN part-chunked eval with tail re-window
     (Test/evaluation_shanghaitech_ubnormal.py:70-95)."""
     items = list(items)
-    results = scorer.score_videos([feats for feats, _ in items])
-    all_scores, all_labels = [], []
-    for (part_scores, counts), (_, anno) in zip(results, items):
-        s = expand_scores_to_frames(part_scores, counts, segment_len)
-        lab = _frame_labels(anno, len(s))
-        all_scores.append(s[:len(lab)])
-        all_labels.append(lab)
-    return _result(all_scores, all_labels, return_scores, return_labels,
-                   compute_auc)
+    with annotate("eval.score"):
+        results = scorer.score_videos([feats for feats, _ in items])
+    with annotate("eval.frames"):
+        all_scores, all_labels = [], []
+        for (part_scores, counts), (_, anno) in zip(results, items):
+            s = expand_scores_to_frames(part_scores, counts, segment_len)
+            lab = _frame_labels(anno, len(s))
+            all_scores.append(s[:len(lab)])
+            all_labels.append(lab)
+        return _result(all_scores, all_labels, return_scores, return_labels,
+                       compute_auc)
 
 
 def evaluate_multicrop_mean(eval_fn, scorer, items_for_crop,
@@ -115,10 +120,10 @@ def evaluate_multicrop_mean(eval_fn, scorer, items_for_crop,
 UCFItem = Tuple[np.ndarray, np.ndarray, int]  # (feats, anno, n_clips)
 
 
-def _ucf_binned(scorer: UCFBinnedScorer, items, segment_len: int):
-    """Per-video (frame scores, frame labels) of the binned UCF eval, each
-    truncated to the shorter of the two."""
-    results = scorer.score_videos([(f, n) for f, _, n in items])
+def _ucf_frames(results, items, segment_len: int):
+    """Per-video (frame scores, frame labels) of the binned UCF eval
+    (``results``, the scorer's), each truncated to the shorter of the
+    two."""
     for (part_scores, parts, r), (_, anno, _) in zip(results, items):
         vs = ucf_expand(part_scores, parts, r, anno, segment_len)
         n = min(len(vs.scores), len(vs.labels))
@@ -131,9 +136,13 @@ def evaluate_ucf_ltn(scorer: UCFBinnedScorer, items: Iterable[UCFItem],
     """UCF binned eval: linspace compression + part grouping
     (Test/evaluation_UCF.py:44-87 with the scorer's final-eval flags;
     Train/temporal_transformer_UCF.py:139-172 with in-training flags)."""
-    pairs = list(_ucf_binned(scorer, list(items), segment_len))
-    return _result([s for s, _ in pairs], [lab for _, lab in pairs],
-                   return_scores, return_labels)
+    items = list(items)
+    with annotate("eval.score"):
+        results = scorer.score_videos([(f, n) for f, _, n in items])
+    with annotate("eval.frames"):
+        pairs = list(_ucf_frames(results, items, segment_len))
+        return _result([s for s, _ in pairs], [lab for _, lab in pairs],
+                       return_scores, return_labels)
 
 
 def evaluate_ucf_per_class(scorer: UCFBinnedScorer, items: Iterable[UCFItem],
@@ -143,13 +152,18 @@ def evaluate_ucf_per_class(scorer: UCFBinnedScorer, items: Iterable[UCFItem],
     utils/eval_utils.py:97-122): per-class AUC / PR-AUC / FAR / score gap,
     plus the Normal class's false-alarm rate.  ``class_names`` aligns with
     ``items``.  Returns (normal_far, mean_pr_auc)."""
-    scores_dict, labels_dict = {}, {}
-    for (s, lab), cls in zip(_ucf_binned(scorer, list(items), segment_len),
-                             class_names):
-        scores_dict.setdefault(cls, []).extend(s)
-        labels_dict.setdefault(cls, []).extend(lab)
-    return eval_each_part(labels_dict, scores_dict,
-                          n_anomaly_classes=n_anomaly_classes, logger=logger)
+    items = list(items)
+    with annotate("eval.score"):
+        results = scorer.score_videos([(f, n) for f, _, n in items])
+    with annotate("eval.frames"):
+        scores_dict, labels_dict = {}, {}
+        for (s, lab), cls in zip(_ucf_frames(results, items, segment_len),
+                                 class_names):
+            scores_dict.setdefault(cls, []).extend(s)
+            labels_dict.setdefault(cls, []).extend(lab)
+        return eval_each_part(labels_dict, scores_dict,
+                              n_anomaly_classes=n_anomaly_classes,
+                              logger=logger)
 
 
 def evaluate_ucf_stn(scorer: UCFClipBinScorer, items: Iterable[UCFItem],
@@ -159,19 +173,22 @@ def evaluate_ucf_stn(scorer: UCFClipBinScorer, items: Iterable[UCFItem],
     (Train/spatio_transformer_UCF.py:120-137).  Scores and labels assemble
     per video."""
     items = list(items)
-    results = scorer.score_videos([(f, n) for f, _, n in items])
-    all_scores, all_labels = [], []
-    for (scores, bin_ids, r), (_, anno, _) in zip(results, items):
-        video_scores, video_labels = [], []
-        for score, i in zip(scores, bin_ids):
-            width = int(r[i + 1] - r[i]) * segment_len
-            lab = np.asarray(anno[r[i] * segment_len:r[i + 1] * segment_len],
-                             dtype=np.float64)
-            n = min(width, len(lab))
-            video_scores.append(np.full(n, score))
-            video_labels.append(lab[:n])
-        all_scores.append(np.concatenate(video_scores) if video_scores
-                          else np.empty(0))
-        all_labels.append(np.concatenate(video_labels) if video_labels
-                          else np.empty(0))
-    return _result(all_scores, all_labels, return_scores, return_labels)
+    with annotate("eval.score"):
+        results = scorer.score_videos([(f, n) for f, _, n in items])
+    with annotate("eval.frames"):
+        all_scores, all_labels = [], []
+        for (scores, bin_ids, r), (_, anno, _) in zip(results, items):
+            video_scores, video_labels = [], []
+            for score, i in zip(scores, bin_ids):
+                width = int(r[i + 1] - r[i]) * segment_len
+                lab = np.asarray(
+                    anno[r[i] * segment_len:r[i + 1] * segment_len],
+                    dtype=np.float64)
+                n = min(width, len(lab))
+                video_scores.append(np.full(n, score))
+                video_labels.append(lab[:n])
+            all_scores.append(np.concatenate(video_scores) if video_scores
+                              else np.empty(0))
+            all_labels.append(np.concatenate(video_labels) if video_labels
+                              else np.empty(0))
+        return _result(all_scores, all_labels, return_scores, return_labels)

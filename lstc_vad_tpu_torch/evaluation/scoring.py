@@ -51,6 +51,7 @@ import torch.nn.functional as F
 
 from ..config import replace
 from ..utils.misc import resolve_dtype
+from ..utils.profiling import annotate
 from .frame_auc import (part_bounds, part_slices, ucf_bin_edges, ucf_bin_pool,
                         ucf_part_plan)
 
@@ -91,10 +92,14 @@ def _read_ahead(feats_list, depth: int = 1):
                 continue
         return False
 
+    def read(f):
+        with annotate("scorer.read"):
+            return _resolve(f)
+
     def worker():
         try:
             for f in feats_list:
-                if not put((None, _resolve(f))):
+                if not put((None, read(f))):
                     return
         except BaseException as e:  # surface in the consuming thread
             put((e, None))
@@ -104,7 +109,8 @@ def _read_ahead(feats_list, depth: int = 1):
     threading.Thread(target=worker, daemon=True).start()
     try:
         while True:
-            err, item = q.get()
+            with annotate("scorer.read_wait"):
+                err, item = q.get()
             if err is not None:
                 raise err
             if item is done:
@@ -183,12 +189,14 @@ class VideoScorer:
         device needs no staging copy and can run while the host goes on.  A
         float32 numpy array, or a torch tensor of a narrower wire type."""
         pinned = self.device.type == "cuda"
-        if self.wire != torch.float32:
-            return torch.empty(shape, dtype=self.wire, pin_memory=pinned)
-        if pinned:
-            return torch.empty(shape, dtype=torch.float32,
-                               pin_memory=True).numpy()
-        return np.empty(shape, np.float32)
+        with annotate("scorer.alloc"):
+            if self.wire != torch.float32:
+                return torch.empty(shape, dtype=self.wire,
+                                   pin_memory=pinned)
+            if pinned:
+                return torch.empty(shape, dtype=torch.float32,
+                                   pin_memory=True).numpy()
+            return np.empty(shape, np.float32)
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         return _scorer_apply(self.encoder, self.head, self.kind,
@@ -199,32 +207,37 @@ class VideoScorer:
         the card nothing here waits for the device: the copies and compute
         are enqueued and only resolve() synchronises."""
         self.n_calls += 1
-        if isinstance(tokens, torch.Tensor):  # a host_buffer of the wire
-            host = tokens
-        else:
-            host = torch.from_numpy(np.ascontiguousarray(tokens,
-                                                         dtype=np.float32))
-        host = host.to(self.wire)  # the cast on the host, before the copy
-        if self.mesh is not None:
-            scores = self._sharded(host)
-            return lambda: scores
-        if self.device.type == "cpu":
-            with torch.inference_mode():
-                scores = self._forward(host).numpy()
-            return lambda: scores
-        if not host.is_pinned():
-            host = host.pin_memory()
-        with torch.cuda.device(self.device), torch.inference_mode():
-            x = host.to(self.device, non_blocking=True)
-            scores = self._forward(x)
-            out = torch.empty(scores.shape, dtype=torch.float32,
-                              pin_memory=True)
-            out.copy_(scores, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
+        with annotate("scorer.dispatch"):
+            if isinstance(tokens, torch.Tensor):  # a host_buffer of the wire
+                host = tokens
+            else:
+                host = torch.from_numpy(np.ascontiguousarray(
+                    tokens, dtype=np.float32))
+            host = host.to(self.wire)  # the cast on the host, before the copy
+            if self.mesh is not None:
+                scores = self._sharded(host)
+                return lambda: scores
+            if self.device.type == "cpu":
+                with torch.inference_mode(), annotate("scorer.forward"):
+                    scores = self._forward(host).numpy()
+                return lambda: scores
+            if not host.is_pinned():
+                host = host.pin_memory()
+            with torch.cuda.device(self.device), torch.inference_mode():
+                with annotate("scorer.h2d"):
+                    x = host.to(self.device, non_blocking=True)
+                with annotate("scorer.forward"):
+                    scores = self._forward(x)
+                with annotate("scorer.d2h"):
+                    out = torch.empty(scores.shape, dtype=torch.float32,
+                                      pin_memory=True)
+                    out.copy_(scores, non_blocking=True)
+                    ready = torch.cuda.Event()
+                    ready.record()
 
         def resolve(host=host):  # holds the pinned input until the copy ran
-            ready.synchronize()
+            with annotate("scorer.wait"):
+                ready.synchronize()
             return out.numpy().copy()
 
         return resolve
@@ -332,22 +345,24 @@ class ClipScorer:
         flat_parts, buf, filled = [], None, 0
         pipe = _Pipeline()
         for f in _read_ahead(feats_list):
-            t = np.ascontiguousarray(f[:, :self.n_patch, :], dtype=np.float32)
-            del f
-            lengths.append(t.shape[0])
-            pos = 0
-            while pos < len(t):
-                if buf is None:
-                    buf = self.scorer.host_buffer((CHUNK,) + t.shape[1:])
-                    filled = 0
-                take = min(CHUNK - filled, len(t) - pos)
-                fill(buf, slice(filled, filled + take), t[pos:pos + take])
-                filled += take
-                pos += take
-                if filled == CHUNK:
-                    pipe.add(self.scorer.score_tokens_async(buf),
-                             flat_parts.append)
-                    buf, filled = None, 0
+            with annotate("scorer.pack"):
+                t = np.ascontiguousarray(f[:, :self.n_patch, :],
+                                         dtype=np.float32)
+                del f
+                lengths.append(t.shape[0])
+                pos = 0
+                while pos < len(t):
+                    if buf is None:
+                        buf = self.scorer.host_buffer((CHUNK,) + t.shape[1:])
+                        filled = 0
+                    take = min(CHUNK - filled, len(t) - pos)
+                    fill(buf, slice(filled, filled + take), t[pos:pos + take])
+                    filled += take
+                    pos += take
+                    if filled == CHUNK:
+                        pipe.add(self.scorer.score_tokens_async(buf),
+                                 flat_parts.append)
+                        buf, filled = None, 0
         if buf is not None and filled:
             pipe.add(self.scorer.score_tokens_async(buf[:filled]),
                      flat_parts.append)
@@ -422,43 +437,44 @@ class PartScorer:
             pending.clear()
 
         for v, feats in enumerate(_read_ahead(feats_list)):
-            feats = np.ascontiguousarray(feats[:, :self.n_patch, :],
-                                         dtype=np.float32)
-            n_clips, n_patch, d = feats.shape
-            idx_list, counts = part_slices(n_clips, self.part_len,
-                                           self.tail_rewindow)
-            all_counts.append(counts)
-            out.append(np.empty(len(idx_list), dtype=np.float32))
-            # parts 0..n_aligned-1 are stride-aligned slices: pack them into
-            # the chunk buffer with block copies off one reshape VIEW of the
-            # video.  The re-windowed tail (full-length but unaligned) and
-            # short tails take the per-part path below.
-            n_aligned = n_clips // self.part_len
-            full_view = feats[:n_aligned * self.part_len].reshape(
-                n_aligned, self.part_len * n_patch, d)
-            pos = 0
-            while pos < n_aligned:
-                if buf is None:
-                    buf = new_buffer(n_patch, d)
-                take = min(CHUNK - len(pending), n_aligned - pos)
-                fill(buf, slice(len(pending), len(pending) + take),
-                     full_view[pos:pos + take])
-                pending.extend((v, i) for i in range(pos, pos + take))
-                pos += take
-                if len(pending) == CHUNK:
-                    flush()
-            del full_view  # a view of feats
-            for i in range(n_aligned, len(idx_list)):
-                idx = idx_list[i]
-                if len(idx) != self.part_len:
-                    shorts.append((v, i, feats[idx]))
-                    continue
-                if buf is None:
-                    buf = new_buffer(n_patch, d)
-                fill(buf, len(pending), feats[idx].reshape(-1, d))
-                pending.append((v, i))
-                if len(pending) == CHUNK:
-                    flush()
+            with annotate("scorer.pack"):
+                feats = np.ascontiguousarray(feats[:, :self.n_patch, :],
+                                             dtype=np.float32)
+                n_clips, n_patch, d = feats.shape
+                idx_list, counts = part_slices(n_clips, self.part_len,
+                                               self.tail_rewindow)
+                all_counts.append(counts)
+                out.append(np.empty(len(idx_list), dtype=np.float32))
+                # parts 0..n_aligned-1 are stride-aligned slices: pack them
+                # into the chunk buffer with block copies off one reshape
+                # VIEW of the video.  The re-windowed tail (full-length but
+                # unaligned) and short tails take the per-part path below.
+                n_aligned = n_clips // self.part_len
+                full_view = feats[:n_aligned * self.part_len].reshape(
+                    n_aligned, self.part_len * n_patch, d)
+                pos = 0
+                while pos < n_aligned:
+                    if buf is None:
+                        buf = new_buffer(n_patch, d)
+                    take = min(CHUNK - len(pending), n_aligned - pos)
+                    fill(buf, slice(len(pending), len(pending) + take),
+                         full_view[pos:pos + take])
+                    pending.extend((v, i) for i in range(pos, pos + take))
+                    pos += take
+                    if len(pending) == CHUNK:
+                        flush()
+                del full_view  # a view of feats
+                for i in range(n_aligned, len(idx_list)):
+                    idx = idx_list[i]
+                    if len(idx) != self.part_len:
+                        shorts.append((v, i, feats[idx]))
+                        continue
+                    if buf is None:
+                        buf = new_buffer(n_patch, d)
+                    fill(buf, len(pending), feats[idx].reshape(-1, d))
+                    pending.append((v, i))
+                    if len(pending) == CHUNK:
+                        flush()
         flush()
         pipe.drain()
         # short tails grouped by length: one batched call per distinct tail
@@ -559,17 +575,19 @@ class UCFBinnedScorer:
 
         for v, (feats, (_, n)) in enumerate(
                 zip(_read_ahead([f for f, _ in items]), items)):
-            binned, parts, r = self._plan(feats, n)
-            del feats  # raw video array: only the pooled ``binned`` is kept
-            metas.append((parts, r))
-            outs.append(np.empty(len(parts), np.float32))
-            d = binned.shape[-1]
-            for i, (beg, end) in enumerate(parts):
-                tok = binned[beg:end].reshape((end - beg) * self.n_patch, d)
-                groups.setdefault(end - beg, []).append((v, i, tok))
-            pending_parts += len(parts)
-            if pending_parts >= self._FLUSH_PARTS:
-                flush()
+            with annotate("scorer.pack"):
+                binned, parts, r = self._plan(feats, n)
+                del feats  # the raw video: only the pooled ``binned`` stays
+                metas.append((parts, r))
+                outs.append(np.empty(len(parts), np.float32))
+                d = binned.shape[-1]
+                for i, (beg, end) in enumerate(parts):
+                    tok = binned[beg:end].reshape(
+                        (end - beg) * self.n_patch, d)
+                    groups.setdefault(end - beg, []).append((v, i, tok))
+                pending_parts += len(parts)
+                if pending_parts >= self._FLUSH_PARTS:
+                    flush()
         flush()
         pipe.drain()
         return [(outs[v], parts, r) for v, (parts, r) in enumerate(metas)]
@@ -604,22 +622,25 @@ class UCFClipBinScorer:
         pipe = _Pipeline()
         for feats, (_, n_clips) in zip(_read_ahead([f for f, _ in items]),
                                        items):
-            feats = np.ascontiguousarray(feats[:, :self.n_patch, :],
-                                         dtype=np.float32)
-            r = ucf_bin_edges(n_clips, self.max_clips)
-            bin_ids = [i for i in range(self.max_clips) if r[i] != r[i + 1]]
-            plans.append((np.asarray(bin_ids, np.int64), r))
-            for i in bin_ids:
-                if buf is None:
-                    buf = self.scorer.host_buffer((CHUNK,) + feats.shape[1:])
-                    filled = 0
-                fill(buf, filled, feats[r[i]:r[i + 1]].mean(axis=0))
-                filled += 1
-                if filled == CHUNK:
-                    pipe.add(self.scorer.score_tokens_async(buf),
-                             flat_parts.append)
-                    buf, filled = None, 0
-            del feats
+            with annotate("scorer.pack"):
+                feats = np.ascontiguousarray(feats[:, :self.n_patch, :],
+                                             dtype=np.float32)
+                r = ucf_bin_edges(n_clips, self.max_clips)
+                bin_ids = [i for i in range(self.max_clips)
+                           if r[i] != r[i + 1]]
+                plans.append((np.asarray(bin_ids, np.int64), r))
+                for i in bin_ids:
+                    if buf is None:
+                        buf = self.scorer.host_buffer(
+                            (CHUNK,) + feats.shape[1:])
+                        filled = 0
+                    fill(buf, filled, feats[r[i]:r[i + 1]].mean(axis=0))
+                    filled += 1
+                    if filled == CHUNK:
+                        pipe.add(self.scorer.score_tokens_async(buf),
+                                 flat_parts.append)
+                        buf, filled = None, 0
+                del feats
         if buf is not None and filled:
             pipe.add(self.scorer.score_tokens_async(buf[:filled]),
                      flat_parts.append)

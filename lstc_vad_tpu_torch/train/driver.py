@@ -60,6 +60,7 @@ from ..models import build
 from ..models.encoder import eval_config, eval_twin
 from ..parallel.multihost import is_writer
 from ..utils.misc import resolve_dtype
+from ..utils.profiling import annotate
 from .state import create_train_state
 from .steps import make_train_step
 
@@ -277,35 +278,37 @@ class Trainer:
         """One pass over the paired dataset.  Returns the last step's
         metrics, ``snippets_per_sec``, ``seconds`` (host wall time, batch
         building included) and ``batches``."""
-        d = self.cfg.data
-        batches = Prefetcher(
-            BatchIterator(self.dataset, d.batch_size, drop_last=True),
-            self.device, feature_dtype=resolve_dtype(d.transfer_dtype),
-            mesh=self.mesh)
-        snippets_per_batch = 2 * d.batch_size * d.part_num * d.part_len
-        metrics = {}
-        log_every = self.cfg.log_every_step
-        n = 0
-        t0 = time.perf_counter()
-        for batch in batches:
-            self.state, metrics = self.step_fn(self.state, *batch)
-            n += 1
-            if log_every and n % log_every == 0:
-                # per-iteration loss lines like the reference
-                # (spatio_transformer_shanghaitech.py:111-112); each waits
-                # for the device, so off by default
-                self.logger.info(
-                    "[iter %d] %s", self.state.step,
-                    {k: round(float(v), 4) for k, v in metrics.items()})
-        # reading the metrics waits for the last step: inside the timing
-        metrics = {k: float(v) for k, v in metrics.items()}
-        seconds = time.perf_counter() - t0
-        self.dataset.shuffle_keys()
-        out = dict(metrics)
-        if n:
-            out["snippets_per_sec"] = n * snippets_per_batch / max(seconds,
-                                                                   1e-9)
-        return out | {"seconds": seconds, "batches": n}
+        with annotate("train.epoch"):
+            d = self.cfg.data
+            batches = Prefetcher(
+                BatchIterator(self.dataset, d.batch_size, drop_last=True),
+                self.device, feature_dtype=resolve_dtype(d.transfer_dtype),
+                mesh=self.mesh)
+            snippets_per_batch = 2 * d.batch_size * d.part_num * d.part_len
+            metrics = {}
+            log_every = self.cfg.log_every_step
+            n = 0
+            t0 = time.perf_counter()
+            for batch in batches:
+                self.state, metrics = self.step_fn(self.state, *batch)
+                n += 1
+                if log_every and n % log_every == 0:
+                    # per-iteration loss lines like the reference
+                    # (spatio_transformer_shanghaitech.py:111-112); each
+                    # waits for the device, so off by default
+                    self.logger.info(
+                        "[iter %d] %s", self.state.step,
+                        {k: round(float(v), 4) for k, v in metrics.items()})
+            # reading the metrics waits for the last step: inside the timing
+            with annotate("train.sync"):
+                metrics = {k: float(v) for k, v in metrics.items()}
+            seconds = time.perf_counter() - t0
+            self.dataset.shuffle_keys()
+            out = dict(metrics)
+            if n:
+                out["snippets_per_sec"] = n * snippets_per_batch / max(
+                    seconds, 1e-9)
+            return out | {"seconds": seconds, "batches": n}
 
     def _emit_metrics(self, record: Dict):
         """One JSON line per record in ``cfg.metrics_jsonl`` (off when

@@ -53,6 +53,7 @@ from ..objectives.losses import (build_clip_labels, coteach_stn_mil_loss,
                                  ltn_mil_loss, soft_cross_entropy_on_probs,
                                  stn_mil_loss, weighted_bce)
 from ..parallel import tp as tpc
+from ..utils.profiling import annotate
 from .optim import clip_gradients
 from .state import TrainState
 
@@ -136,21 +137,25 @@ class TrainStep:
                     f"({norm_labs.shape[0]}): parallel/multihost.py::"
                     "to_global")
             layout = tpc.BatchLayout(data.rank, data.size, blocks=2)
-        with step_rng(state.seed, state.step, dev), tpc.batch_layout(layout):
-            loss, metrics = self.loss_fn(state, norm_feats, norm_labs,
-                                         abnorm_feats, abnorm_labs)
-        loss.backward()
-        if data is not None:
-            tpc.all_reduce_grads(
-                [p for g in state.optimizer.param_groups
-                 for p in g["params"]], data)
+        with annotate("step.forward"):
+            with step_rng(state.seed, state.step, dev), \
+                    tpc.batch_layout(layout):
+                loss, metrics = self.loss_fn(state, norm_feats, norm_labs,
+                                             abnorm_feats, abnorm_labs)
+        with annotate("step.backward"):
+            loss.backward()
+            if data is not None:
+                tpc.all_reduce_grads(
+                    [p for g in state.optimizer.param_groups
+                     for p in g["params"]], data)
         return {k: v.detach() for k, v in metrics.items()}
 
     def __call__(self, state: TrainState, *batch) -> Tuple[TrainState,
                                                             Metrics]:
         metrics = self.grads(state, *batch)
-        clip_gradients(self.cfg.optim, state.optimizer, state.mesh)
-        state.optimizer.step()
+        with annotate("step.optim"):
+            clip_gradients(self.cfg.optim, state.optimizer, state.mesh)
+            state.optimizer.step()
         state.step += 1
         return state, metrics
 

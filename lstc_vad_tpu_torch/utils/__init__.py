@@ -3,4 +3,4 @@
 name: a torch-free serving worker imports this package's logging."""
 
 from .logging import get_logger, log_config  # noqa: F401
-from .profiling import StepTimer, annotate, trace  # noqa: F401
+from .profiling import annotate, trace  # noqa: F401

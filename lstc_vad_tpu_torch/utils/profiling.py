@@ -1,13 +1,24 @@
-"""Tracing and step timing — the counterpart of
-lstc_vad_tpu/utils/profiling.py:1-60 on ``torch.profiler``.
+"""Tracing — the counterpart of lstc_vad_tpu/utils/profiling.py:1-60 on
+``torch.profiler``.
 
-- ``trace(logdir)``: a context manager that profiles the host and, when a
-  card is visible, the device, and writes a Chrome trace
-  (``<logdir>/trace.json``, viewable in Perfetto or chrome://tracing).
-- ``annotate(name)``: a named span in that trace (``record_function``).
+- ``annotate(name)``: the program's one span call.  While a profiler runs
+  it returns ``torch.profiler.record_function(name)``, a span in the same
+  Kineto timeline as the device's kernels and copies; otherwise a shared
+  ``contextlib.nullcontext``, so a span costs well under a microsecond
+  with tracing off.  ``name`` must be one of ``SPANS`` (checked only while
+  a profiler runs).
+- ``SPANS``: every span name the program records, each with its meaning.
+  Spans sit at layer boundaries of the eval pass and the train epoch,
+  never one per part, clip or kernel launch.
+- ``trace(logdir)``: a context manager that profiles the host, every
+  thread of it, and, when a card is visible, the device, and writes a
+  Chrome trace (``<logdir>/trace.json``, viewable in Perfetto or
+  chrome://tracing).
 - ``device_busy_ms(path)``: the device's busy time in a written trace, the
   union of its kernel, copy and memset intervals.
-- ``StepTimer``: wall-clock step timing and an items/s counter.
+
+This module imports no torch: a torch-free serving worker imports the
+package's logging.
 """
 
 from __future__ import annotations
@@ -15,17 +26,76 @@ from __future__ import annotations
 import contextlib
 import json
 import os
-import time
-from typing import Optional
+import sys
 
 TRACE_FILE = "trace.json"
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
+SPANS = {
+    # evaluation drivers (evaluation/drivers.py)
+    "eval.score": "the scorer's score_videos over the split",
+    "eval.frames": "part or clip scores expanded to frames, labels, AUC",
+    # scorers (evaluation/scoring.py)
+    "scorer.read_wait": "the consumer waiting for the reader's next video",
+    "scorer.read": "the reader thread loading one video's features",
+    "scorer.pack": "one video: slices, part plan, binning, chunk fill, "
+                   "flush",
+    "scorer.alloc": "a new pinned chunk buffer",
+    "scorer.dispatch": "one device call: cast, copies and forward enqueued",
+    "scorer.h2d": "the chunk's host-to-device copy enqueued",
+    "scorer.forward": "the encoder and head enqueued",
+    "scorer.d2h": "the pinned score buffer, its copy and the ready event",
+    "scorer.wait": "the host blocked until a call's scores are on the host",
+    # trainer (train/driver.py)
+    "train.epoch": "Trainer.train_epoch",
+    "train.sync": "the epoch's closing metrics read (waits for the card)",
+    # batch pipeline (data/pipeline.py)
+    "batch.start": "the Prefetcher's side stream and worker thread started",
+    "batch.wait": "the consumer waiting for the worker's next batch",
+    "batch.build": "the worker building one batch (store reads, sampling)",
+    "batch.stage": "the worker's pinned copy or cast and H2D enqueue",
+    # train step (train/steps.py)
+    "step.forward": "the loss under the step's RNG and layout contexts",
+    "step.backward": "the backward and the gradient all-reduce",
+    "step.optim": "gradient clipping and the Adagrad update",
+}
+
+_NULL = contextlib.nullcontext()
+
+
+def annotate(name: str):
+    """A span named ``name`` while a profiler runs, else ``_NULL``.
+
+    ``torch.autograd.profiler._is_profiler_enabled`` is set by every
+    ``torch.profiler.profile`` for as long as it runs, whatever thread
+    reads it; ``torch.autograd._profiler_enabled()`` reads False on every
+    thread of a profile with ``profile_all_threads``.  Without torch
+    imported no profiler can run."""
+    profiler = sys.modules.get("torch.autograd.profiler")
+    if profiler is None or not profiler._is_profiler_enabled:
+        return _NULL
+    if name not in SPANS:
+        raise ValueError(f"unknown span {name!r}: add it to "
+                         "utils/profiling.py::SPANS")
+    return profiler.record_function(name)
+
+
+def _all_threads():
+    """``experimental_config`` that records every thread, where the
+    installed torch has it."""
+    from torch._C._profiler import _ExperimentalConfig
+
+    try:
+        return {"experimental_config":
+                _ExperimentalConfig(profile_all_threads=True)}
+    except TypeError:
+        return {}
+
 
 @contextlib.contextmanager
 def trace(logdir: str):
-    """Profile the block and write ``<logdir>/trace.json``; yields the
-    ``torch.profiler.profile``."""
+    """Profile the block, every thread of the process, and write
+    ``<logdir>/trace.json``; yields the ``torch.profiler.profile``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -33,15 +103,9 @@ def trace(logdir: str):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, **_all_threads()) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
-
-
-def annotate(name: str):
-    import torch
-
-    return torch.profiler.record_function(name)
 
 
 def device_busy_ms(trace_path: str) -> float:
@@ -58,32 +122,3 @@ def device_busy_ms(trace_path: str) -> float:
         busy += stop - max(start, end)
         end = stop
     return busy / 1e3
-
-
-class StepTimer:
-    """Accumulates (steps, items, seconds); ``rate()`` -> items/s."""
-
-    def __init__(self):
-        self.steps = 0
-        self.items = 0
-        self.seconds = 0.0
-        self._t0: Optional[float] = None
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.seconds += time.perf_counter() - self._t0
-        self.steps += 1
-        self._t0 = None
-        return False
-
-    def add_items(self, n: int):
-        self.items += n
-
-    def rate(self) -> float:
-        return self.items / self.seconds if self.seconds else 0.0
-
-    def per_step(self) -> float:
-        return self.seconds / self.steps if self.steps else 0.0
