@@ -902,6 +902,7 @@ def run_bf16(cfg, store, test_videos, pack: str, card: str,
         wires[wire] = {"loss": m["loss"], "epoch_s": m["seconds"],
                        "batch_bytes": sum(t.nbytes for t in one),
                        "feature_bytes": one[0].nbytes + one[2].nbytes}
+        tr.close()  # its worker reads the pack for the next epoch
         tr.store.close()
         del tr, one
     out["wire"] = wires
@@ -1554,7 +1555,8 @@ def run_tencrop(cfg, encoder, head, root: str, card: str,
 def _trainer_run(trainer, jsonl: str, device: str, trace_dir: str):
     """fit(2) with the kernel's launches counted, then one more epoch under
     the profiler for the device's idle share of an epoch (batch building
-    included: one step an epoch leaves the prefetcher nothing to overlap)."""
+    included: ``fit`` stopped the batch worker, so the epoch is built while
+    the card waits)."""
     from lstc_vad_tpu_torch.ops import cuda_attention
     from lstc_vad_tpu_torch.utils.profiling import (TRACE_FILE,
                                                     device_busy_ms, trace)
@@ -1570,6 +1572,7 @@ def _trainer_run(trainer, jsonl: str, device: str, trace_dir: str):
         t0 = time.perf_counter()
         trainer.train_epoch()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    trainer.close()  # the next epoch, built ahead, is not wanted
     busy = (device_busy_ms(os.path.join(trace_dir, TRACE_FILE))
             if device == "cuda" else None)
     return {"losses": [r["loss"] for r in epochs],
@@ -2368,6 +2371,8 @@ def run_mesh(cfg, store, test_videos, pack: str, test_txt: str, root: str,
                     row["eval_wall_s"] = time.perf_counter() - t0
                     row["eval_encoder_calls"] = t.scorer.scorer.n_calls
             out["mesh"]["by_route"] = launched
+            for t in trainers.values():
+                t.close()  # before the process group goes
             return out
 
         # every count at 0 before the mesh path, read after it (drive sums

@@ -7,4 +7,9 @@ from .datasets import (  # noqa: F401
 )
 from .feature_store import FeatureStore  # noqa: F401
 from .packed import PackedStore  # noqa: F401
-from .pipeline import BatchIterator, Prefetcher  # noqa: F401
+from .pipeline import (  # noqa: F401
+    BatchIterator,
+    BatchWorker,
+    EpochPrefetcher,
+    Prefetcher,
+)

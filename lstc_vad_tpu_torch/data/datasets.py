@@ -15,7 +15,10 @@ batches stay bit-equal.  Over a store with the gather fast paths
 window indices are drawn on the host: per item through ``store.gather``,
 or for a whole batch through ``get_batch`` and one native
 ``store.gather_batch`` call.  Both draw from the generator in the per-item
-order, so every path gives the same batches bit for bit.
+order, so every path gives the same batches bit for bit.  ``fork`` copies
+the sampling state (generator and permutations) so that a worker thread can
+build the next epoch while the caller keeps this dataset, and
+``draws_like`` says whether a dataset would still draw what a fork does.
 
 Test videos carry per-frame annotations: zeros(n_frames) for normal, the GT
 mask .npy (SHT/UBnormal, utils/load_dataset.py:119-126) or GT h5 row (UCF,
@@ -25,6 +28,7 @@ serves, including an in-memory one.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 from typing import Callable, Dict, List, Optional, Sequence
@@ -91,6 +95,36 @@ class PairedTrainDataset:
         dataloader.dataset.shuffle_keys() (spatio_transformer_shanghaitech.py:115)."""
         self._norm_perm = self.rng.permutation(len(self.normal))
         self._abnorm_perm = self.rng.permutation(len(self.abnormal))
+
+    def fork(self) -> "PairedTrainDataset":
+        """A copy that draws from its own copies of the generator and the
+        permutations, and shares every other attribute (records, store,
+        pseudo labels) with this dataset."""
+        twin = copy.copy(self)
+        twin.rng = copy.deepcopy(self.rng)
+        twin._norm_perm = self._norm_perm.copy()
+        twin._abnorm_perm = self._abnorm_perm.copy()
+        return twin
+
+    def draws_like(self, other: "PairedTrainDataset") -> bool:
+        """True when this dataset would draw what ``other`` draws: the
+        generator in the same state, equal permutations, and every other
+        attribute the same object (a pseudo-label dict edited in place
+        is not seen)."""
+        mine, theirs = vars(self), vars(other)
+        if mine.keys() != theirs.keys():
+            return False
+        for name, a in mine.items():
+            b = theirs[name]
+            if name == "rng":
+                same = a.bit_generator.state == b.bit_generator.state
+            elif isinstance(a, np.ndarray):
+                same = np.array_equal(a, b)
+            else:
+                same = a is b
+            if not same:
+                return False
+        return True
 
     def _pseudo_for(self, key: str) -> Optional[np.ndarray]:
         if self.pseudo_labels is None:

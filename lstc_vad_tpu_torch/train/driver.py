@@ -21,8 +21,14 @@ same seeds and cut to the process's rows, the scorers data parallel, and
 the metrics JSONL, the AUC-gated checkpoints and the saves written by rank
 0 alone, behind barriers.
 
+Batches come from one ``EpochPrefetcher`` worker that lives as long as the
+Trainer (or until ``close``, which ``fit`` calls on its way out): it builds
+the next epoch's batches while the current epoch's steps run, from a copy
+of the sampling state, and ``train_epoch`` takes them only if the dataset
+still draws what that copy drew (data/pipeline.py).
+
 Wire types: ``data.transfer_dtype="bfloat16"`` casts each batch's features on
-the host before the copy (the Prefetcher), so they enter the encoder as
+the host before the copy (the batch worker), so they enter the encoder as
 bf16; ``data.eval_transfer_dtype`` is the evaluation's own knob, handed to
 every scorer, so the training one never moves evaluation scores.
 
@@ -48,9 +54,9 @@ import numpy as np
 
 from ..ckpt.io import load_checkpoint, save_checkpoint, wait_for_saves
 from ..config import TrainConfig
-from ..data import (BatchIterator, FeatureStore, PackedStore,
-                    PairedTrainDataset, Prefetcher, load_pseudo_labels,
-                    load_test_videos, load_train_records)
+from ..data import (EpochPrefetcher, FeatureStore, PackedStore,
+                    PairedTrainDataset, load_pseudo_labels, load_test_videos,
+                    load_train_records)
 from ..device import resolve_device
 from ..evaluation.drivers import (evaluate_ltn, evaluate_stn,
                                   evaluate_ucf_ltn, evaluate_ucf_stn)
@@ -84,6 +90,10 @@ class Trainer:
     ``data.pack_path`` or ``data.h5_path`` and reading ``data.test_txt`` —
     co-teaching keeps every round's Trainer alive, and shares them
     (pseudo/coteach.py).
+
+    After ``train_epoch`` the batch worker goes on reading the store for
+    the next epoch: ``close`` the Trainer (``fit`` does on its way out)
+    before closing its store.
 
     ``eval_only``: build no paired dataset and no train step, read the test
     split lazily, and allow an empty train list (the evaluate and
@@ -138,6 +148,7 @@ class Trainer:
                 crop_per_video=(d.dataset == "UCF"), seed=d.seed)
         self.train_records = records
         self._train_masks: Dict[str, np.ndarray] = {}
+        self._batches = EpochPrefetcher(self.device, mesh=mesh)
 
         # in-training eval re-scores the split every inter_epoch epochs:
         # with data.eager (SHT/UBnormal presets) memoize its features; UCF
@@ -277,19 +288,20 @@ class Trainer:
     def train_epoch(self) -> Dict[str, float]:
         """One pass over the paired dataset.  Returns the last step's
         metrics, ``snippets_per_sec``, ``seconds`` (host wall time, batch
-        building included) and ``batches``."""
+        building included), ``batches``, ``batches_ahead`` (of them, those
+        built before the epoch began) and ``ahead_discarded`` (prepared
+        batches dropped because the dataset no longer draws what they were
+        drawn from)."""
         with annotate("train.epoch"):
             d = self.cfg.data
-            batches = Prefetcher(
-                BatchIterator(self.dataset, d.batch_size, drop_last=True),
-                self.device, feature_dtype=resolve_dtype(d.transfer_dtype),
-                mesh=self.mesh)
+            batches = self._batches
             snippets_per_batch = 2 * d.batch_size * d.part_num * d.part_len
             metrics = {}
             log_every = self.cfg.log_every_step
             n = 0
             t0 = time.perf_counter()
-            for batch in batches:
+            for batch in batches.epoch(self.dataset, d.batch_size,
+                                       resolve_dtype(d.transfer_dtype)):
                 self.state, metrics = self.step_fn(self.state, *batch)
                 n += 1
                 if log_every and n % log_every == 0:
@@ -308,7 +320,14 @@ class Trainer:
             if n:
                 out["snippets_per_sec"] = n * snippets_per_batch / max(
                     seconds, 1e-9)
-            return out | {"seconds": seconds, "batches": n}
+            return out | {"seconds": seconds, "batches": n,
+                          "batches_ahead": batches.ahead,
+                          "ahead_discarded": batches.discarded}
+
+    def close(self):
+        """Stop the batch worker and free the batches it prepared; a later
+        ``train_epoch`` starts a new one."""
+        self._batches.close()
 
     def _emit_metrics(self, record: Dict):
         """One JSON line per record in ``cfg.metrics_jsonl`` (off when
@@ -346,61 +365,71 @@ class Trainer:
         evaluation.  ``autosave_every``: save the full state to
         ``<model_save_dir>/autosave`` every N epochs, asynchronously (restart
         with ``restore_state`` and continue exactly).  Every save has
-        committed when ``fit`` returns."""
+        committed, and the batch worker stopped, when ``fit`` returns."""
         cfg = self.cfg
         result = TrainResult()
         epochs = cfg.epochs if epochs is None else epochs
-        for epoch in range(epochs):
-            if autosave_every and epoch and epoch % autosave_every == 0:
-                self.save_state(os.path.join(cfg.model_save_dir, "autosave"),
-                                asynchronous=True)
-            m = self.train_epoch()
-            result.steps += m.pop("batches")
-            self.logger.info("[epoch %d] %s", epoch,
-                             {k: round(v, 4) for k, v in m.items()})
-            self._emit_metrics({"kind": "train", "epoch": epoch,
-                                "step": self.state.step, **m})
-            if epoch % cfg.inter_epoch == 0 or epoch == epochs - 1:
-                auc_test = self.evaluate("test") if self.test_videos else 0.0
-                auc_train = (self.evaluate("train")
-                             if cfg.eval_train_split else 0.0)
-                entry = {"epoch": epoch, "auc_test": auc_test,
-                         "auc_train": auc_train, **m}
-                result.history.append(entry)
-                self._emit_metrics({"kind": "eval", **entry})
-                # the reference gates saving on the train-split AUC for SHT
-                # (spatio_transformer_shanghaitech.py:177-191) and on test AUC
-                # otherwise (spatio_transformer_UCF.py:139-149)
-                gate = auc_train if cfg.eval_train_split else auc_test
-                prev_best = (result.best_train_auc if cfg.eval_train_split
-                             else result.best_test_auc)
-                improved = gate > prev_best
-                if auc_test > result.best_test_auc:
-                    result.best_test_auc = auc_test
-                    result.best_test_epoch = epoch
-                if auc_train > result.best_train_auc:
-                    result.best_train_auc = auc_train
-                    result.best_train_epoch = epoch
-                if improved:
-                    # co-teaching regenerates pseudo labels from the BEST
-                    # weights (spatio_transformer_MIL_CE.py:392-396); copies,
-                    # since the next step updates the live tensors in place
-                    self.best_params = {
-                        name: {k: v.detach().clone() for k, v in sd.items()}
-                        for name, sd in self.params().items()}
-                if improved and gate > cfg.save_threshold:
-                    path = os.path.join(
-                        cfg.model_save_dir,
-                        f"{cfg.data.dataset}_{cfg.model}_{gate:.4f}")
-                    self.logger.info("saving model to %s", path)
-                    save_checkpoint(path, self.params(), mesh=self.mesh)
-                self.logger.info(
-                    "[epoch %d] test AUC %.4f (best %.4f @%d) "
-                    "train AUC %.4f (best %.4f @%d)", epoch, auc_test,
-                    result.best_test_auc, result.best_test_epoch, auc_train,
-                    result.best_train_auc, result.best_train_epoch)
-                if on_eval is not None:
-                    on_eval(self, result, entry)
+        try:
+            for epoch in range(epochs):
+                if autosave_every and epoch and epoch % autosave_every == 0:
+                    self.save_state(
+                        os.path.join(cfg.model_save_dir, "autosave"),
+                        asynchronous=True)
+                m = self.train_epoch()
+                result.steps += m.pop("batches")
+                self.logger.info("[epoch %d] %s", epoch,
+                                 {k: round(v, 4) for k, v in m.items()})
+                self._emit_metrics({"kind": "train", "epoch": epoch,
+                                    "step": self.state.step, **m})
+                if epoch % cfg.inter_epoch == 0 or epoch == epochs - 1:
+                    auc_test = (self.evaluate("test") if self.test_videos
+                                else 0.0)
+                    auc_train = (self.evaluate("train")
+                                 if cfg.eval_train_split else 0.0)
+                    entry = {"epoch": epoch, "auc_test": auc_test,
+                             "auc_train": auc_train, **m}
+                    result.history.append(entry)
+                    self._emit_metrics({"kind": "eval", **entry})
+                    # the reference gates saving on the train-split AUC for
+                    # SHT (spatio_transformer_shanghaitech.py:177-191) and on
+                    # test AUC otherwise (spatio_transformer_UCF.py:139-149)
+                    gate = auc_train if cfg.eval_train_split else auc_test
+                    prev_best = (result.best_train_auc if cfg.eval_train_split
+                                 else result.best_test_auc)
+                    improved = gate > prev_best
+                    if auc_test > result.best_test_auc:
+                        result.best_test_auc = auc_test
+                        result.best_test_epoch = epoch
+                    if auc_train > result.best_train_auc:
+                        result.best_train_auc = auc_train
+                        result.best_train_epoch = epoch
+                    if improved:
+                        # co-teaching regenerates pseudo labels from the
+                        # BEST weights (spatio_transformer_MIL_CE.py:392-396);
+                        # copies, since the next step updates the live
+                        # tensors in place
+                        self.best_params = {
+                            name: {k: v.detach().clone()
+                                   for k, v in sd.items()}
+                            for name, sd in self.params().items()}
+                    if improved and gate > cfg.save_threshold:
+                        path = os.path.join(
+                            cfg.model_save_dir,
+                            f"{cfg.data.dataset}_{cfg.model}_{gate:.4f}")
+                        self.logger.info("saving model to %s", path)
+                        save_checkpoint(path, self.params(), mesh=self.mesh)
+                    self.logger.info(
+                        "[epoch %d] test AUC %.4f (best %.4f @%d) "
+                        "train AUC %.4f (best %.4f @%d)", epoch, auc_test,
+                        result.best_test_auc, result.best_test_epoch,
+                        auc_train, result.best_train_auc,
+                        result.best_train_epoch)
+                    if on_eval is not None:
+                        on_eval(self, result, entry)
+        finally:
+            # the worker's next epoch is not wanted: free it, and leave
+            # the store to the caller alone, also when an epoch raised
+            self.close()
         wait_for_saves()  # commit any autosave in flight before returning
         return result
 

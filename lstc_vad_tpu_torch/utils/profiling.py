@@ -50,10 +50,15 @@ SPANS = {
     "train.epoch": "Trainer.train_epoch",
     "train.sync": "the epoch's closing metrics read (waits for the card)",
     # batch pipeline (data/pipeline.py)
-    "batch.start": "the Prefetcher's side stream and worker thread started",
+    "batch.start": "a BatchWorker's side stream and thread started (once "
+                   "per worker: the Trainer's lasts across epochs)",
     "batch.wait": "the consumer waiting for the worker's next batch",
-    "batch.build": "the worker building one batch (store reads, sampling)",
+    "batch.build": "the worker building one batch (store reads, sampling), "
+                   "this epoch's or, ahead of it, the next one's",
     "batch.stage": "the worker's pinned copy or cast and H2D enqueue",
+    "batch.discard": "prepared batches dropped at an epoch's start, since "
+                     "the dataset no longer draws what they were drawn "
+                     "from: the worker stopped and its queue emptied",
     # train step (train/steps.py)
     "step.forward": "the loss under the step's RNG and layout contexts",
     "step.backward": "the backward and the gradient all-reduce",

@@ -6,6 +6,7 @@ card test also runs on a machine without them."""
 import ast
 import json
 import os
+import time
 from pathlib import Path
 
 import numpy as np
@@ -172,29 +173,56 @@ def _trainer(tmp_path, seed=3):
                    test_videos=[], device="cpu")
 
 
+def settle(trainer, timeout=60.0):
+    """Wait until the Trainer's batch worker has queued the next epoch
+    whole, its batches and its end (an epoch of at most two batches, the
+    worker's depth): its spans have then all closed, and it waits for the
+    next ``train_epoch``."""
+    items = trainer._batches._worker._shared.items
+    want = len(trainer.dataset) // trainer.cfg.data.batch_size + 1
+    deadline = time.monotonic() + timeout
+    while items.qsize() < want:
+        assert time.monotonic() < deadline, "the next epoch was never built"
+        time.sleep(0.01)
+
+
 def test_train_epoch_spans_nest_and_count(tmp_path):
+    """Two epochs traced, and the worker's third (built ahead while the
+    second runs) settled before the trace ends: one ``batch.start`` for the
+    worker's life, not one an epoch; the builds of the epoch built ahead
+    counted with the rest."""
     trainer = _trainer(tmp_path)
     logdir = str(tmp_path / "trace")
     with trace(logdir):
-        m = trainer.train_epoch()
-    assert m["batches"] >= 2
+        ms = [trainer.train_epoch(), trainer.train_epoch()]
+        settle(trainer)
+    m = ms[0]
+    assert m["batches"] >= 2 and ms[1]["batches"] == m["batches"]
+    steps = sum(x["batches"] for x in ms)
     spans = _spans(logdir)
-    (epoch,) = _named(spans, "train.epoch")
-    unit = epoch["tid"]
-    assert len(_named(spans, "batch.start")) == 1
+    epochs = _named(spans, "train.epoch")
+    assert len(epochs) == 2
+    unit = epochs[0]["tid"]
+    (start,) = _named(spans, "batch.start")
     assert _parents(spans, "batch.start") == {"train.epoch"}
-    assert len(_named(spans, "batch.wait")) == m["batches"] + 1
+    assert epochs[0]["ts"] <= start["ts"] and start["end"] <= epochs[0]["end"]
+    assert not _named(spans, "batch.discard")
+    assert len(_named(spans, "batch.wait")) == steps + len(ms)
     assert _parents(spans, "batch.wait") == {"train.epoch"}
     for name in ("step.forward", "step.backward", "step.optim"):
-        assert len(_named(spans, name)) == m["batches"], name
+        assert len(_named(spans, name)) == steps, name
         assert _parents(spans, name) == {"train.epoch"}, name
-    (sync,) = _named(spans, "train.sync")
-    assert sync["parent"] == "train.epoch"
-    assert sync["ts"] >= max(s["end"] for s in _named(spans, "step.optim"))
-    # the worker's spans, on its own thread
+    syncs = _named(spans, "train.sync")
+    assert len(syncs) == 2 and _parents(spans, "train.sync") == {"train.epoch"}
+    for epoch, sync in zip(epochs, syncs):
+        assert epoch["ts"] <= sync["ts"] and sync["end"] <= epoch["end"]
+        assert sync["ts"] >= max(s["end"] for s in _named(spans, "step.optim")
+                                 if epoch["ts"] <= s["ts"] <= epoch["end"])
+    # the worker's spans, on its own thread: three epochs, each with one
+    # build more than batches (the last finds the epoch's end)
     builds, stages = _named(spans, "batch.build"), _named(spans, "batch.stage")
-    assert len(builds) == m["batches"] + 1  # the last finds the epoch's end
-    assert len(stages) == m["batches"]
+    assert len(builds) == 3 * (m["batches"] + 1)
+    assert len(stages) == 3 * m["batches"]
     worker = {s["tid"] for s in builds + stages}
     assert len(worker) == 1 and unit not in worker
     assert {s["parent"] for s in builds + stages} == {None}
