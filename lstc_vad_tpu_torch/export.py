@@ -20,12 +20,13 @@ artifact with tails bakes three lengths.  The batch axis is a symbolic
 nothing per batch, so no batch is padded); several token lengths are
 distinct programs (the relative-position bias is sliced by the sequence
 length, models/MultiHeadAttention.py:108 — how LTN tail parts are scored).
-The attention kernel is the registered operator ``lstc_vad::attention``, one
-opaque node of each program, so a loaded program launches the kernel on the
-card.
+The attention kernel is the registered operator ``lstc_vad::attention``, and
+each f32 Linear of the encoder the operator ``lstc_vad::linear``, each one
+opaque node of the programs, so a loaded program launches the kernels on
+the card.
 
-Loading needs only torch and this package's ``ops`` module, which registers
-the operator: no model code, no config.  The JAX artifact lowers for
+Loading needs only torch and this package's ``ops`` modules, which register
+the operators: no model code, no config.  The JAX artifact lowers for
 ("tpu", "cpu"); this one is device-portable instead: ``load_scorer(path,
 device=)`` moves the programs to ``device`` whichever device exported them
 (``torch.export.passes.move_to_device_pass`` rewrites the device that ops
@@ -44,6 +45,7 @@ import torch
 
 from .device import resolve_device
 from .ops import cuda_attention  # noqa: F401  (registers lstc_vad::attention)
+from .ops import cuda_linear  # noqa: F401  (registers lstc_vad::linear)
 
 _META = "meta.json"
 _PARAMS = "params.pt"

@@ -22,8 +22,9 @@ whatever the flags; the flags gate only their use.
 
 Dropout follows ``module.training``; evaluation calls ``.eval()``.  The
 attention inner loop dispatches through ops.attention.sdpa (the CUDA kernel
-of the tensors' type on the card); the GEMMs are nn.Linear's weights on
-cuBLAS.
+of the tensors' type on the card); the f32 GEMMs (every Linear's product in
+``dense`` and ``sharded_dense``) go through ops/cuda_linear.py's operator,
+the 3xTF32 kernel of csrc/gemm.cu on the card and ``F.linear`` on the CPU.
 
 The JAX package's train-time knobs, f32 and off by default:
 - ``compute_dtype="bfloat16"``: the casts are explicit, as flax's are (no
@@ -68,6 +69,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import EncoderConfig
 from ..device import resolve_device
 from ..ops.attention import sdpa
+from ..ops.cuda_linear import linear
 from ..ops.sr import sr_cast, sr_linear
 from ..parallel import tp as tpc
 from . import initializers as init
@@ -99,17 +101,17 @@ def dense(lin: nn.Linear, x: torch.Tensor, dt: torch.dtype,
           sr: bool, tp: Optional[tpc.Axis] = None,
           row: bool = False) -> torch.Tensor:
     """``lin`` applied as the JAX package's Dense of compute type ``dt``:
-    the module itself in f32; or x and the weight cast to bf16, the product
-    rounded to bf16, then the bf16 bias added (a second rounding, as flax
-    adds the bias after the dot); or, on the SR arm, stochastically rounded
-    casts.  ``tp``: ``lin`` is split over that model axis
-    (``sharded_dense``)."""
+    in f32 its product through ``linear`` (ops/cuda_linear.py); or x and
+    the weight cast to bf16, the product rounded to bf16, then the bf16
+    bias added (a second rounding, as flax adds the bias after the dot);
+    or, on the SR arm, stochastically rounded casts.  ``tp``: ``lin`` is
+    split over that model axis (``sharded_dense``)."""
     if tp is not None:
         return sharded_dense(lin, x, dt, sr, tp, row)
     if sr:
         return sr_linear(x, lin.weight, lin.bias)
     if dt == torch.float32:
-        return lin(x)
+        return linear(x, lin.weight, lin.bias)
     y = F.linear(x.to(dt), lin.weight.to(dt))
     return y if lin.bias is None else y + lin.bias.to(dt)
 
@@ -129,7 +131,8 @@ def _sr(t: torch.Tensor, tp: tpc.Axis, split: Optional[int],
 
 
 def sharded_dense(lin: nn.Linear, x: torch.Tensor, dt: torch.dtype,
-                  sr: bool, tp: tpc.Axis, row: bool) -> torch.Tensor:
+                  sr: bool, tp: tpc.Axis, row: bool,
+                  f32_linear=linear) -> torch.Tensor:
     """``dense`` of a Linear split over the model axis ``tp``
     (parallel/mesh.py's rules).  Column-parallel (``row`` False): x is
     replicated (the caller passed it through ``copy_to_model``) and the
@@ -139,7 +142,10 @@ def sharded_dense(lin: nn.Linear, x: torch.Tensor, dt: torch.dtype,
     to bf16 before the sum.  SR noise is drawn at the global shapes and
     sliced, in the unsharded order (x, weight, bias).  On a model axis of
     one rank a row-parallel Linear is whole: it runs as a column-parallel
-    one, its bias inside the product, as the unsharded module runs."""
+    one, its bias inside the product, as the unsharded module runs.
+    ``f32_linear`` computes the f32 product: the encoder's ``linear``, the
+    heads' ``F.linear`` (their unsharded module's), so that a mesh of one
+    rank gives each module's unsharded bits."""
     row = row and tp.size > 1
     w_dim = 1 if row else 0
     bias = lin.bias
@@ -149,7 +155,7 @@ def sharded_dense(lin: nn.Linear, x: torch.Tensor, dt: torch.dtype,
         if bias is not None and not row:
             y = y + _sr(bias, tp, 0, False)
     elif dt == torch.float32:
-        y = F.linear(x, lin.weight, None if row else bias)
+        y = f32_linear(x, lin.weight, None if row else bias)
     else:
         y = F.linear(x.to(dt), lin.weight.to(dt))
         if bias is not None and not row:

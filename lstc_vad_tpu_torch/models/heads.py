@@ -15,6 +15,7 @@ Linears at indices 0/3/5 — the reference's state_dict keys
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
@@ -71,12 +72,14 @@ class _Head(nn.Module):
         if tp is None:
             return mlp(x.float())
         # on a mesh: the first Linear column-parallel, the second
-        # row-parallel, the last replicated
+        # row-parallel, the last replicated; every product on F.linear, as
+        # nn.Linear computes it off the mesh
         f32 = torch.float32
         x = torch.relu(sharded_dense(mlp[0], tpc.copy_to_model(x.float(), tp),
-                                     f32, False, tp, row=False))
+                                     f32, False, tp, row=False,
+                                     f32_linear=F.linear))
         x = sharded_dense(mlp[3], tpc.dropout(mlp[2], x, cols=tp), f32,
-                          False, tp, row=True)
+                          False, tp, row=True, f32_linear=F.linear)
         return mlp[6](mlp[5](tpc.dropout(mlp[4], x)))
 
 

@@ -3,11 +3,11 @@
 Each source under ``lstc_vad_tpu_torch/csrc`` is compiled into
 ``lstc_vad_tpu_torch/_build/lib<name>-<hash>.so`` and loaded with ctypes:
 the CUDA kernels (``.cu``, one library per kernel source of the
-attention operator) by ``nvcc`` for ``sm_90a``, the host C++ pack
-reader (``packstore.cpp``, data/packed.py) by ``g++``.  The hash covers the
-source and the compiler flags (for a CUDA library every ``.cu`` / ``.cuh``
-file of ``csrc``), so an edited source builds anew and a stale library is
-never loaded.  The sources expose a plain C interface and include no PyTorch
+attention and the Linear operators) by ``nvcc`` for ``sm_90a``, the host
+C++ pack reader (``packstore.cpp``, data/packed.py) by ``g++``.  The hash
+covers the source and the compiler flags (for a CUDA library every
+``.cu`` / ``.cuh`` file of ``csrc``), so an edited source builds anew and a
+stale library is never loaded.  The sources expose a plain C interface and include no PyTorch
 header, which keeps a build to seconds.
 
 Importing this module builds nothing and needs no compiler: the CPU tests
@@ -31,6 +31,7 @@ BUILD_DIR = PKG_DIR / "_build"
 SOURCES = {"attention": "attention.cu", "attention_bf16": "attention_bf16.cu",
            "attention_stream": "attention_stream.cu",
            "attention_stream_bf16": "attention_stream_bf16.cu",
+           "gemm": "gemm.cu",
            "packstore": "packstore.cpp"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
