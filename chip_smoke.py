@@ -54,7 +54,7 @@
    x 2048, per-frame masks on the abnormal ones) made from a numpy seed.
    The launch counter is set to 0 just before and read just after; it must
    equal n_layers x encoder calls, and every Linear of the encoder must
-   take the GEMM kernel (``cuda_linear.by_route``: 6 x n_layers x encoder
+   take the GEMM kernel (``cuda_linear.launches``: 6 x n_layers x encoder
    calls).  The same eval with attn_impl="plain"
    must give the same frame scores (atol 5e-5) and AUC (within 1e-4).
 4. Autograd phase: the kernel's autograd Function (forward: the kernel;
@@ -484,13 +484,14 @@ def check_gemm(m: int, n: int, k: int, with_bias: bool, dev,
         want = want64
         flops = 2 * m * n * k
     with torch.no_grad():
-        before = cuda_linear.by_route["kernel"]
+        before = cuda_linear.launches
         got = run()
         again = run()
         torch.cuda.synchronize()
-        if not dgrad and cuda_linear.by_route["kernel"] != before + 2:
+        if not dgrad and cuda_linear.launches != before + 2:
             raise AssertionError(f"gemm M={m} N={n} K={k}: the operator did "
-                                 f"not take the kernel: {cuda_linear.by_route}")
+                                 f"not take the kernel: "
+                                 f"{cuda_linear.launches - before} launches")
         ref = lib()
         tf32x3 = split()
         torch.cuda.synchronize()
@@ -699,7 +700,7 @@ def check_autograd(b: int, length: int, dev, strided: bool) -> dict:
 
 def set_up(seed: int = SEED):
     """TF32 off, then the main path's config, synthetic data and model on the
-    card (scripts/torch_eval_profile.py drives the same set-up)."""
+    card."""
     import torch
 
     from lstc_vad_tpu_torch.config import preset
@@ -715,7 +716,7 @@ def set_up(seed: int = SEED):
 
 
 def set_up_train(root: str, seed: int = SEED, **overrides):
-    """The train phase's config and data (scripts/torch_train_profile.py
+    """The train phase's config and data (scripts/torch_train_grad_check.py
     drives the same set-up): ``sht_ltn`` at full width, the synthetic SHT
     train split made from ``seed`` with its list and masks written under
     ``root``, evaluations every 2 epochs, TF32 off.  Returns (cfg, store)."""
@@ -870,19 +871,19 @@ OP_GROUPS = {"gemm": ("aten::mm", "aten::addmm"),
                            "aten::_foreach_add_", "aten::_foreach_addcdiv_")}
 
 
-def op_group_ms(prof, groups: dict = OP_GROUPS) -> dict:
+def op_group_ms(prof) -> dict:
     """Self device time (ms) of the CPU-side operators of a profile, by
-    group of operator names, the rest under "other" (the kernels' own rows
-    repeat their operators' time)."""
+    group of operator names (``OP_GROUPS``), the rest under "other" (the
+    kernels' own rows repeat their operators' time)."""
     from torch.autograd import DeviceType
 
-    out = {k: 0.0 for k in (*groups, "other")}
+    out = {k: 0.0 for k in (*OP_GROUPS, "other")}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CPU:
             continue
         ms = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0)) / 1e3
-        out[next((g for g, names in groups.items() if e.key in names),
+        out[next((g for g, names in OP_GROUPS.items() if e.key in names),
                  "other")] += ms
     return out
 
@@ -2780,12 +2781,10 @@ def main() -> int:
         path that trains in this process (``trains``) its input
         gradients."""
         row = {"launches": cuda_linear.launches,
-               "launches_dgrad": cuda_linear.launches_dgrad,
-               "by_route": dict(cuda_linear.by_route)}
+               "launches_dgrad": cuda_linear.launches_dgrad}
         gemm_by_path[name] = row
         cuda_linear.reset_launches()
-        if row["by_route"] != {"kernel": row["launches"]} \
-                or row["launches"] < 6 * attention \
+        if row["launches"] < 6 * attention \
                 or (trains and not row["launches_dgrad"]):
             raise AssertionError(
                 f"the {name} path's Linears left the GEMM kernel: {row}; "
@@ -2797,12 +2796,11 @@ def main() -> int:
     auc, scores, wall, n_calls = run_eval(encoder, head, cfg, items)
     launches = cuda_attention.launches
     expect = cfg.encoder.n_layers * n_calls
-    linear_routes = dict(cuda_linear.by_route)
-    if linear_routes != {"kernel": 6 * expect} \
-            or cuda_linear.launches != 6 * expect:
+    linear_launches = cuda_linear.launches
+    if linear_launches != 6 * expect:
         raise AssertionError(f"the main path's Linears left the GEMM kernel: "
-                             f"{linear_routes}, {cuda_linear.launches} "
-                             f"launches; expected {6 * expect}")
+                             f"{linear_launches} launches; expected "
+                             f"{6 * expect}")
     if cuda_attention.by_route["f32"] != launches:
         raise AssertionError(f"the main path left the tiled f32 kernel: "
                              f"{cuda_attention.by_route}")
@@ -2838,7 +2836,7 @@ def main() -> int:
         "preset": "sht_ltn", "videos": len(items), "clips": n_clips,
         "parts": n_parts, "auc": auc, "plain_auc": plain_auc,
         "max_abs_score_err": score_err, "launches": launches,
-        "linear_by_route": linear_routes, "encoder_calls": n_calls, "wall_s": wall, "parts_per_s": n_parts / wall,
+        "linear_launches": linear_launches, "encoder_calls": n_calls, "wall_s": wall, "parts_per_s": n_parts / wall,
         "warm_wall_s": warm_wall, "warm_parts_per_s": n_parts / warm_wall,
         "plain_wall_s": plain_wall, "plain_parts_per_s": n_parts / plain_wall,
         "card": card}))

@@ -34,15 +34,17 @@ runs its collectives at once, in program order, and returns scores already
 fetched: the deferral of ``_Pipeline`` then reorders nothing across
 processes.
 
-Variable-length tails (paths without tail re-windowing) are scored at their
-true length in a separate call — shorter sequences change the relative-PE
-slice, so padding them would NOT be equivalent
-(models/MultiHeadAttention.py:108).
+Every scorer hands its rows to one chunk packer (``_Packer``), which keeps a
+chunk per token length: variable-length tails (paths without tail
+re-windowing) are scored at their true length in chunks of their own —
+shorter sequences change the relative-PE slice, so padding them would NOT
+be equivalent (models/MultiHeadAttention.py:108).
 """
 
 from __future__ import annotations
 
 import collections
+from types import SimpleNamespace
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -58,18 +60,13 @@ from .frame_auc import (part_bounds, part_slices, ucf_bin_edges, ucf_bin_pool,
 CHUNK = 2048  # parts per device call (a 49-token f32 LTN chunk is ~0.8 GB)
 
 
-def _resolve(feats):
-    """Accept an array OR a zero-arg callable returning one: the lazy test
-    split (data/datasets.py TestVideo.loader) streams each video's features
-    through the scorer and lets them be freed before the next video loads."""
-    return feats() if callable(feats) else feats
-
-
 def _read_ahead(feats_list, depth: int = 1):
-    """Yield resolved feature arrays, loading ``depth`` videos ahead in a
-    reader thread: video N+1's h5 read overlaps video N's host copy and
-    device dispatch.  Steady-state liveness is current + depth + 1 arrays.
-    Loader exceptions re-raise in the consumer.
+    """Yield the feature arrays of ``feats_list``, each an array or a
+    zero-arg loader of one (the lazy test split, data/datasets.py
+    TestVideo.loader, frees each video before the next loads), loading
+    ``depth`` videos ahead in a reader thread: video N+1's h5 read overlaps
+    video N's host copy and device dispatch.  Steady-state liveness is
+    current + depth + 1 arrays.  Loader exceptions re-raise in the consumer.
 
     If the consumer abandons the generator (a scoring exception, or an early
     close), the finally block signals the worker and drains the queue: the
@@ -94,7 +91,7 @@ def _read_ahead(feats_list, depth: int = 1):
 
     def read(f):
         with annotate("scorer.read"):
-            return _resolve(f)
+            return f() if callable(f) else f
 
     def worker():
         try:
@@ -318,6 +315,64 @@ class _Pipeline:
             self._pop()
 
 
+class _Packer:
+    """The chunk packer under the offline scorers.  ``add`` copies rows into
+    the open ``CHUNK``-row ``host_buffer`` of their shape (one per token
+    length), a buffer that fills is dispatched at once into one
+    ``_Pipeline``, and its sink scatters the scores to the videos' arrays.
+    ``finish`` dispatches the partly filled buffers, the shape seen first
+    going first, drains, and returns the arrays."""
+
+    def __init__(self, scorer: VideoScorer):
+        self.scorer = scorer
+        self.out: List[np.ndarray] = []
+        # row shape -> its open chunk, None once dispatched; the keys keep
+        # the order in which the shapes were first seen
+        self._open: Dict[tuple, SimpleNamespace] = {}
+        self._pipe = _Pipeline()  # chunk N+1's copy beside chunk N's compute
+
+    def video(self, n: int) -> int:
+        """A score array of ``n`` rows for the next video; its index."""
+        self.out.append(np.empty(n, np.float32))
+        return len(self.out) - 1
+
+    def add(self, v: int, i: int, rows: np.ndarray):
+        """rows [k, L, d], scored into ``out[v][i:i+k]``: copied in slices
+        of what fits, so a block of rows stays one copy a chunk."""
+        shape = rows.shape[1:]
+        pos = 0
+        while pos < len(rows):
+            c = self._open.get(shape)
+            if c is None:
+                c = self._open[shape] = SimpleNamespace(
+                    buf=self.scorer.host_buffer((CHUNK,) + shape), filled=0,
+                    targets=[])
+            take = min(CHUNK - c.filled, len(rows) - pos)
+            fill(c.buf, slice(c.filled, c.filled + take), rows[pos:pos + take])
+            c.targets.append((c.filled, v, i + pos, take))  # (row, v, i, k)
+            c.filled += take
+            pos += take
+            if c.filled == CHUNK:
+                self._dispatch(shape)
+
+    def _dispatch(self, shape):
+        c = self._open[shape]
+        self._open[shape] = None
+
+        def sink(scores):
+            for row, v, i, k in c.targets:
+                self.out[v][i:i + k] = scores[row:row + k]
+
+        self._pipe.add(self.scorer.score_tokens_async(c.buf[:c.filled]), sink)
+
+    def finish(self) -> List[np.ndarray]:
+        for shape in list(self._open):
+            if self._open[shape] is not None:
+                self._dispatch(shape)
+        self._pipe.drain()
+        return self.out
+
+
 class ClipScorer:
     """STN: every clip of a video scored as one n_patch-token sequence
     (cf. Train/spatio_transformer_shanghaitech.py:133-137).
@@ -333,46 +388,19 @@ class ClipScorer:
         self.n_patch = n_patch
 
     def score_video(self, feats: np.ndarray) -> np.ndarray:
-        feats = _resolve(feats)
-        tokens = np.ascontiguousarray(feats[:, :self.n_patch, :],
-                                      dtype=np.float32)
-        return self.scorer.score_tokens(tokens)
+        return self.score_videos([feats])[0]
 
     def score_videos(self, feats_list: List[np.ndarray]) -> List[np.ndarray]:
         """All clips of all videos in chunk-sized batches, streamed: the
         whole test set's clips are never held at once."""
-        lengths = []
-        flat_parts, buf, filled = [], None, 0
-        pipe = _Pipeline()
+        packer = _Packer(self.scorer)
         for f in _read_ahead(feats_list):
             with annotate("scorer.pack"):
                 t = np.ascontiguousarray(f[:, :self.n_patch, :],
                                          dtype=np.float32)
                 del f
-                lengths.append(t.shape[0])
-                pos = 0
-                while pos < len(t):
-                    if buf is None:
-                        buf = self.scorer.host_buffer((CHUNK,) + t.shape[1:])
-                        filled = 0
-                    take = min(CHUNK - filled, len(t) - pos)
-                    fill(buf, slice(filled, filled + take), t[pos:pos + take])
-                    filled += take
-                    pos += take
-                    if filled == CHUNK:
-                        pipe.add(self.scorer.score_tokens_async(buf),
-                                 flat_parts.append)
-                        buf, filled = None, 0
-        if buf is not None and filled:
-            pipe.add(self.scorer.score_tokens_async(buf[:filled]),
-                     flat_parts.append)
-        pipe.drain()
-        flat = np.concatenate(flat_parts) if flat_parts else np.empty(0)
-        out, cursor = [], 0
-        for n in lengths:
-            out.append(flat[cursor:cursor + n])
-            cursor += n
-        return out
+                packer.add(packer.video(len(t)), 0, t)
+        return packer.finish()
 
 
 class PartScorer:
@@ -389,54 +417,17 @@ class PartScorer:
 
     def score_video(self, feats: np.ndarray
                     ) -> Tuple[np.ndarray, np.ndarray]:
-        feats = np.ascontiguousarray(_resolve(feats)[:, :self.n_patch, :],
-                                     dtype=np.float32)
-        n_clips, n_patch, d = feats.shape
-        idx_list, counts = part_slices(n_clips, self.part_len,
-                                       self.tail_rewindow)
-        scores = np.empty(len(idx_list), dtype=np.float32)
-        # group parts by token length; full-length parts batch together
-        by_len: Dict[int, List[int]] = {}
-        for i, idx in enumerate(idx_list):
-            by_len.setdefault(len(idx), []).append(i)
-        for length, part_ids in by_len.items():
-            gathered = np.stack([feats[idx_list[i]] for i in part_ids])
-            tokens = gathered.reshape(len(part_ids), length * n_patch, d)
-            scores[part_ids] = self.scorer.score_tokens(tokens)
-        return scores, counts
+        return self.score_videos([feats])[0]
 
     def score_videos(self, feats_list: List[np.ndarray]
                      ) -> List[Tuple[np.ndarray, np.ndarray]]:
         """Score MANY videos in large cross-video part batches: one copy to
-        the device and one encoder call per chunk of up to ``CHUNK`` parts;
-        parts stream through a chunk-sized buffer.  Returns
-        [(part_scores, counts)] aligned with ``feats_list``."""
-        out: List[np.ndarray] = []
+        the device and one encoder call per chunk of up to ``CHUNK`` parts
+        of a token length.  Returns [(part_scores, counts)] aligned with
+        ``feats_list``."""
+        packer = _Packer(self.scorer)
         all_counts: List[np.ndarray] = []
-        shorts: List[Tuple[int, int, np.ndarray]] = []
-        buf = None
-        pending: List[Tuple[int, int]] = []
-        pipe = _Pipeline()  # overlap chunk N+1's copy with chunk N's compute
-
-        def new_buffer(n_patch, d):
-            return self.scorer.host_buffer(
-                (CHUNK, self.part_len * n_patch, d))
-
-        def flush():
-            nonlocal buf
-            if pending:
-                targets = list(pending)
-
-                def sink(scores, targets=targets):
-                    for (v, i), s in zip(targets, scores):
-                        out[v][i] = s
-
-                pipe.add(self.scorer.score_tokens_async(
-                    buf[:len(pending)]), sink)
-            buf = None
-            pending.clear()
-
-        for v, feats in enumerate(_read_ahead(feats_list)):
+        for feats in _read_ahead(feats_list):
             with annotate("scorer.pack"):
                 feats = np.ascontiguousarray(feats[:, :self.n_patch, :],
                                              dtype=np.float32)
@@ -444,52 +435,16 @@ class PartScorer:
                 idx_list, counts = part_slices(n_clips, self.part_len,
                                                self.tail_rewindow)
                 all_counts.append(counts)
-                out.append(np.empty(len(idx_list), dtype=np.float32))
-                # parts 0..n_aligned-1 are stride-aligned slices: pack them
-                # into the chunk buffer with block copies off one reshape
-                # VIEW of the video.  The re-windowed tail (full-length but
-                # unaligned) and short tails take the per-part path below.
+                v = packer.video(len(idx_list))
+                # parts 0..n_aligned-1 are stride-aligned slices: one block
+                # off a reshape VIEW of the video.  The tail, re-windowed
+                # (full length, unaligned) or short, is one row of its own.
                 n_aligned = n_clips // self.part_len
-                full_view = feats[:n_aligned * self.part_len].reshape(
-                    n_aligned, self.part_len * n_patch, d)
-                pos = 0
-                while pos < n_aligned:
-                    if buf is None:
-                        buf = new_buffer(n_patch, d)
-                    take = min(CHUNK - len(pending), n_aligned - pos)
-                    fill(buf, slice(len(pending), len(pending) + take),
-                         full_view[pos:pos + take])
-                    pending.extend((v, i) for i in range(pos, pos + take))
-                    pos += take
-                    if len(pending) == CHUNK:
-                        flush()
-                del full_view  # a view of feats
+                packer.add(v, 0, feats[:n_aligned * self.part_len].reshape(
+                    n_aligned, self.part_len * n_patch, d))
                 for i in range(n_aligned, len(idx_list)):
-                    idx = idx_list[i]
-                    if len(idx) != self.part_len:
-                        shorts.append((v, i, feats[idx]))
-                        continue
-                    if buf is None:
-                        buf = new_buffer(n_patch, d)
-                    fill(buf, len(pending), feats[idx].reshape(-1, d))
-                    pending.append((v, i))
-                    if len(pending) == CHUNK:
-                        flush()
-        flush()
-        pipe.drain()
-        # short tails grouped by length: one batched call per distinct tail
-        # length instead of one batch-1 call per video
-        shorts_by_len: Dict[int, List[Tuple[int, int, np.ndarray]]] = {}
-        for v, i, gathered in shorts:
-            shorts_by_len.setdefault(gathered.shape[0], []).append(
-                (v, i, gathered))
-        for entries in shorts_by_len.values():
-            tokens = np.stack([g for _, _, g in entries])
-            tokens = tokens.reshape(len(entries), -1, tokens.shape[-1])
-            scores = self.scorer.score_tokens(tokens)
-            for (v, i, _), s in zip(entries, scores):
-                out[v][i] = s
-        return list(zip(out, all_counts))
+                    packer.add(v, i, feats[idx_list[i]].reshape(1, -1, d))
+        return list(zip(packer.finish(), all_counts))
 
 
 class UCFBinnedScorer:
@@ -507,11 +462,6 @@ class UCFBinnedScorer:
       from the feature array length;
     - pseudo-label gen (Train/pseudo_labels_generator_temporal.py:72-107):
       l2_normalize=False, tail_rewindow=False, adaptive_bins=False."""
-
-    # flush the cross-video groups every this-many accumulated parts: bounds
-    # resident binned arrays to a window (~120 UCF-scale videos) while still
-    # batching far beyond one video per device call
-    _FLUSH_PARTS = 2048
 
     def __init__(self, encoder, head, part_len: int, n_patch: int,
                  max_clips: int = 32, l2_normalize: bool = True,
@@ -542,55 +492,24 @@ class UCFBinnedScorer:
 
     def score_videos(self, items):
         """items = [(feats or a zero-arg loader, n_clips)] ->
-        [(part_scores, parts, r)] aligned with items: one device call per
-        token-length group per flush window.
-
-        Groups are flushed every ``_FLUSH_PARTS`` accumulated parts, so the
-        binned arrays of only a window of videos stay resident: the UCF
-        train split is ~1,600 videos, against the one-video-resident
-        streaming the other scorers promise."""
+        [(part_scores, parts, r)] aligned with items, one device call per
+        ``CHUNK`` parts of a token length.  A video's binned array is freed
+        before the next loads: the ~1,600 videos of the UCF train split
+        stream as the other scorers' do."""
         items = list(items)
+        packer = _Packer(self.scorer)
         metas = []   # (parts, r) per video — small, kept for the return
-        outs: List[np.ndarray] = []
-        groups: Dict[int, List[Tuple[int, int, np.ndarray]]] = {}
-        pending_parts = 0
-        pipe = _Pipeline()  # overlap group N+1's copy with group N's compute
-
-        def flush():
-            nonlocal pending_parts
-            for entries in groups.values():
-                buf = self.scorer.host_buffer(
-                    (len(entries),) + entries[0][2].shape)
-                for j, (_, _, tok) in enumerate(entries):
-                    fill(buf, j, tok)
-                targets = [(v, i) for v, i, _ in entries]
-
-                def sink(scores, targets=targets):
-                    for (v, i), s in zip(targets, scores):
-                        outs[v][i] = s
-
-                pipe.add(self.scorer.score_tokens_async(buf), sink)
-            groups.clear()  # drops the token views -> binned arrays free
-            pending_parts = 0
-
-        for v, (feats, (_, n)) in enumerate(
-                zip(_read_ahead([f for f, _ in items]), items)):
+        for feats, (_, n) in zip(_read_ahead([f for f, _ in items]), items):
             with annotate("scorer.pack"):
                 binned, parts, r = self._plan(feats, n)
                 del feats  # the raw video: only the pooled ``binned`` stays
                 metas.append((parts, r))
-                outs.append(np.empty(len(parts), np.float32))
-                d = binned.shape[-1]
+                v = packer.video(len(parts))
                 for i, (beg, end) in enumerate(parts):
-                    tok = binned[beg:end].reshape(
-                        (end - beg) * self.n_patch, d)
-                    groups.setdefault(end - beg, []).append((v, i, tok))
-                pending_parts += len(parts)
-                if pending_parts >= self._FLUSH_PARTS:
-                    flush()
-        flush()
-        pipe.drain()
-        return [(outs[v], parts, r) for v, (parts, r) in enumerate(metas)]
+                    packer.add(v, i, binned[beg:end].reshape(
+                        1, (end - beg) * self.n_patch, binned.shape[-1]))
+        return [(s, parts, r) for s, (parts, r) in zip(packer.finish(),
+                                                       metas)]
 
 
 class UCFClipBinScorer:
@@ -617,9 +536,8 @@ class UCFClipBinScorer:
         scores nothing, as the reference loop moves on
         (Train/spatio_transformer_UCF.py:123)."""
         items = list(items)
+        packer = _Packer(self.scorer)
         plans = []
-        flat_parts, buf, filled = [], None, 0
-        pipe = _Pipeline()
         for feats, (_, n_clips) in zip(_read_ahead([f for f, _ in items]),
                                        items):
             with annotate("scorer.pack"):
@@ -629,30 +547,12 @@ class UCFClipBinScorer:
                 bin_ids = [i for i in range(self.max_clips)
                            if r[i] != r[i + 1]]
                 plans.append((np.asarray(bin_ids, np.int64), r))
-                for i in bin_ids:
-                    if buf is None:
-                        buf = self.scorer.host_buffer(
-                            (CHUNK,) + feats.shape[1:])
-                        filled = 0
-                    fill(buf, filled, feats[r[i]:r[i + 1]].mean(axis=0))
-                    filled += 1
-                    if filled == CHUNK:
-                        pipe.add(self.scorer.score_tokens_async(buf),
-                                 flat_parts.append)
-                        buf, filled = None, 0
+                v = packer.video(len(bin_ids))
+                for j, i in enumerate(bin_ids):
+                    packer.add(v, j, feats[r[i]:r[i + 1]].mean(axis=0)[None])
                 del feats
-        if buf is not None and filled:
-            pipe.add(self.scorer.score_tokens_async(buf[:filled]),
-                     flat_parts.append)
-        pipe.drain()
-        flat = (np.concatenate(flat_parts) if flat_parts
-                else np.empty(0, np.float32))
-        out, cursor = [], 0
-        for bin_ids, r in plans:
-            n = len(bin_ids)
-            out.append((flat[cursor:cursor + n], bin_ids, r))
-            cursor += n
-        return out
+        return [(s, bin_ids, r) for s, (bin_ids, r) in zip(packer.finish(),
+                                                           plans)]
 
 
 def ucf_final_eval_shapes(cfg):

@@ -14,7 +14,7 @@ layers to XLA, and the port ran them on cuBLAS's FP32 kernels.
   d_inner 3027 into ``w_2``) is padded into the row stride of a copy of x
   and of the weight's halves, since TMA reads rows of whole 16 bytes; an N
   that is not one (3027 out of ``w_1``) the kernel stores from registers.
-  Any other type raises (``route``): the encoder's bf16 and SR Linears
+  Any other type raises (``check_kernel``): the encoder's bf16 and SR Linears
   never call it.  A launch the runtime refuses raises; nothing falls back.
 
 The one route to the kernel is the registered operator
@@ -37,10 +37,9 @@ an optimizer step.  Importing this module registers the operator; an
 exported program that holds it needs the import before
 ``torch.export.load``.
 
-``launches`` counts the forward launches of the kernel, ``launches_dgrad``
-the input-gradient launches, and ``by_route`` the forward calls on CUDA
-tensors by route.  A run resets them to 0 and reads them afterwards to show
-that its Linears went through the kernel.
+``launches`` counts the forward launches of the kernel and
+``launches_dgrad`` the input-gradient launches.  A run resets them to 0 and
+reads them afterwards to show that its Linears went through the kernel.
 """
 
 from __future__ import annotations
@@ -57,30 +56,27 @@ from . import _build
 OP_NAME = "lstc_vad::linear"
 INPUT_GRAD_OP_NAME = "lstc_vad::linear_input_grad"
 ALIGN = 4  # f32 elements in 16 bytes: the row strides TMA takes
-ROUTES = ("kernel",)
 
 launches = 0        # forward launches of the kernel
 launches_dgrad = 0  # input-gradient launches of the kernel
-by_route = dict.fromkeys(ROUTES, 0)
 
 
-def route(dtype: torch.dtype, n: int, k: int) -> str:
-    """How a CUDA Linear of ``dtype`` from K = ``k`` inputs to N = ``n``
-    outputs is computed: "kernel" (csrc/gemm.cu) for float32 at every
-    width.  Raises for any other type and for an empty width.  The input
-    gradient, a product over N into K columns, takes the same route."""
+def check_kernel(dtype: torch.dtype, n: int, k: int):
+    """Refuse what the kernel (csrc/gemm.cu) does not take for a CUDA Linear
+    of ``dtype`` from K = ``k`` inputs to N = ``n`` outputs: any type but
+    float32 (TypeError) and an empty width (ValueError); every other width
+    it takes.  The input gradient, a product over N into K columns, is
+    checked the same way."""
     if dtype != torch.float32:
         raise TypeError(f"linear: the kernel takes float32, got {dtype}")
     if n < 1 or k < 1:
         raise ValueError(f"linear: the kernel takes no empty width, got "
                          f"N={n} K={k}")
-    return "kernel"
 
 
 def reset_launches():
     global launches, launches_dgrad
     launches = launches_dgrad = 0
-    by_route.update(dict.fromkeys(ROUTES, 0))
 
 
 @functools.cache
@@ -214,7 +210,7 @@ def _forward(x: torch.Tensor, weight: torch.Tensor,
                          "CUDA tensors")
     _check(x, weight, bias)
     n, k = weight.shape
-    by_route[route(x.dtype, n, k)] += 1
+    check_kernel(x.dtype, n, k)
     y = gemm(x, weight, bias, transpose=False)
     launches += 1
     return y.view(*x.shape[:-1], n)
@@ -243,7 +239,7 @@ def _input_grad_op(grad: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     if grad.device.type != "cuda":
         return torch.matmul(grad.reshape(-1, n), weight).view(
             *grad.shape[:-1], k)
-    route(grad.dtype, k, n)
+    check_kernel(grad.dtype, k, n)
     dx = gemm(grad, weight, None, transpose=True)
     launches_dgrad += 1
     return dx.view(*grad.shape[:-1], k)

@@ -9,9 +9,9 @@ over the synthetic UCF-scale test split (data/synthetic.py: 290 videos whose
 features are made from the seed as each is read).  Runs one warm-up pass of
 evaluate_ucf_ltn through the final-eval UCFBinnedScorer, then one under
 torch.profiler, and prints one JSON line: wall time, device busy time and
-idle share, device time by category and the top kernels
-(scripts/torch_eval_profile.py's summary), plus the host seconds spent
-making the features, timed alone.  Writes the Chrome trace to ``--out``.
+idle share, device time by category (GEMM, the attention kernel, copies,
+other) and the ten kernels with the most device time, plus the host seconds
+spent making the features, timed alone.  Writes the Chrome trace to ``--out``.
 Needs one CUDA card.
 """
 
@@ -20,12 +20,39 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
-sys.path.insert(0, os.path.join(REPO, "scripts"))
+
+CATEGORIES = (("attention_kernel", re.compile(r"attention_fwd_kernel")),
+              ("gemm", re.compile(r"gemm|sm90_xmma|cutlass|cublas", re.I)))
+
+
+def summarize(trace_path: str, wall_s: float) -> dict:
+    """The device's busy time, idle share, time by category and top kernels
+    in the Chrome trace at ``trace_path`` of a pass of ``wall_s`` seconds."""
+    from lstc_vad_tpu_torch.utils.profiling import (DEVICE_CATEGORIES,
+                                                    device_busy_ms)
+
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    device = [e for e in events if e.get("cat") in DEVICE_CATEGORIES]
+    by_cat, by_name = {}, {}
+    for e in device:
+        name = e["name"]
+        cat = "copy" if e["cat"] != "kernel" else next(
+            (c for c, pat in CATEGORIES if pat.search(name)), "other")
+        by_cat[cat] = by_cat.get(cat, 0.0) + e["dur"] / 1e3
+        by_name[name] = by_name.get(name, 0.0) + e["dur"] / 1e3
+    busy_ms = device_busy_ms(trace_path)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / (wall_s * 1e3),
+            "device_ms_by_category": by_cat,
+            "top_kernels_ms": [{"name": n[:120], "ms": t} for n, t in top]}
 
 
 def main(argv=None) -> int:
@@ -44,7 +71,6 @@ def main(argv=None) -> int:
     from lstc_vad_tpu_torch.evaluation.scoring import (ucf_final_eval_scorer,
                                                        ucf_final_eval_shapes)
     from lstc_vad_tpu_torch.models import build
-    from torch_eval_profile import summarize
 
     if not torch.cuda.is_available():
         print("torch sees no CUDA card", file=sys.stderr)

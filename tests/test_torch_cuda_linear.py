@@ -78,11 +78,11 @@ def _hold_to_float64(got, library, want, depth):
 def test_forward_against_float64(card, m, n, k, with_bias):
     x, w, b = _operands(card, m, n, k, m + n + k)
     b = b if with_bias else None
-    before = cuda_linear.by_route["kernel"]
+    before = cuda_linear.launches
     with torch.no_grad():
         got = cuda_linear.linear(x, w, b)
         again = cuda_linear.linear(x, w, b)
-        assert cuda_linear.by_route["kernel"] == before + 2
+        assert cuda_linear.launches == before + 2
         want = x.double() @ w.double().t()
         if b is not None:
             want += b.double()
@@ -135,10 +135,10 @@ def test_ragged_widths_and_refusals(card):
     apart (copied into a padded row stride); other types raise; the kernel
     takes a strided input and writes a fresh contiguous output."""
     x, w, b = _operands(card, 4096, 3027, 2048, 5)
-    before = cuda_linear.by_route["kernel"]
+    before = cuda_linear.launches
     with torch.no_grad():
         y = cuda_linear.linear(x, w, b)
-        assert cuda_linear.by_route == {"kernel": before + 1}
+        assert cuda_linear.launches == before + 1
         assert y.shape == (4096, 3027) and y.is_contiguous()
         want = x.double() @ w.double().t() + b.double()
         _hold_to_float64(y, F.linear(x, w, b), want, 2048)
@@ -195,12 +195,11 @@ def test_every_encoder_linear_of_the_cells_takes_the_kernel(card, name):
     cuda_linear.reset_launches()
     with torch.inference_mode():
         head(encoder(x)[:, 0])
-    assert cuda_linear.by_route == {"kernel": 6 * n}
     assert cuda_linear.launches == 6 * n
     cuda_linear.reset_launches()
     encoder.train()
     head(encoder(x)[:, 0]).sum().backward()
-    assert cuda_linear.by_route == {"kernel": 6 * n}
+    assert cuda_linear.launches == 6 * n
     assert cuda_linear.launches_dgrad == 6 * n - 3
 
 

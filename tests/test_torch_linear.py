@@ -107,23 +107,23 @@ def _encoder_linears(cfg):
 
 @pytest.mark.parametrize("name", sorted(PRESETS))
 def test_route_at_every_presets_widths(name):
-    """The route is a function of the type and the two widths alone, for
-    the forward and for the input gradient (the same widths swapped): every
-    f32 Linear of every preset on the kernel, d_inner 3027 (the STN and UCF
-    presets, rows not whole 16 bytes) too; bf16 never through the
-    operator; an empty width refused."""
+    """Every f32 Linear of every preset is one the kernel takes, for the
+    forward and for the input gradient (the same widths swapped), d_inner
+    3027 (the STN and UCF presets, rows not whole 16 bytes) too; bf16 is
+    refused at every one of them, and so is an empty width."""
     cfg = preset(name)
-    routes = {}
     for lin, n, k in _encoder_linears(cfg):
-        routes[lin] = cuda_linear.route(torch.float32, n, k)
-        assert cuda_linear.route(torch.float32, k, n) == routes[lin]
+        assert cuda_linear.check_kernel(torch.float32, n, k) is None, lin
+        assert cuda_linear.check_kernel(torch.float32, k, n) is None, lin
         with pytest.raises(TypeError):
-            cuda_linear.route(torch.bfloat16, n, k)
-    assert set(routes.values()) == {"kernel"}
-    assert cuda_linear.route(torch.float32, 2048, 3027) == "kernel"
-    assert cuda_linear.route(torch.float32, 3027, 2048) == "kernel"
-    with pytest.raises(ValueError):
-        cuda_linear.route(torch.float32, 2048, 0)
+            cuda_linear.check_kernel(torch.bfloat16, n, k)
+        with pytest.raises(TypeError):
+            cuda_linear.check_kernel(torch.bfloat16, k, n)
+    cuda_linear.check_kernel(torch.float32, 2048, 3027)
+    cuda_linear.check_kernel(torch.float32, 3027, 2048)
+    for n, k in ((2048, 0), (0, 2048)):
+        with pytest.raises(ValueError):
+            cuda_linear.check_kernel(torch.float32, n, k)
 
 
 def test_fake_gives_the_shape_on_meta():
@@ -278,7 +278,9 @@ def test_a_model_axis_of_one_rank_keeps_each_modules_product(monkeypatch):
 def test_cuda_counters_are_plain_integers():
     cuda_linear.reset_launches()
     assert cuda_linear.launches == cuda_linear.launches_dgrad == 0
-    assert cuda_linear.by_route == {"kernel": 0}
-    before = dict(cuda_linear.by_route)
-    cuda_linear.linear(torch.ones(2, 4), torch.ones(3, 4))
-    assert cuda_linear.by_route == before  # CPU calls launch nothing
+    assert type(cuda_linear.launches) is int
+    assert type(cuda_linear.launches_dgrad) is int
+    x = torch.ones(2, 4, requires_grad=True)
+    cuda_linear.linear(x, torch.ones(3, 4)).sum().backward()
+    # CPU calls launch nothing
+    assert cuda_linear.launches == cuda_linear.launches_dgrad == 0

@@ -27,7 +27,7 @@ from lstc_vad_tpu.train.driver import Trainer as JaxTrainer
 from lstc_vad_tpu_torch.config import PRESETS
 from lstc_vad_tpu_torch.config import preset as port_preset
 from lstc_vad_tpu_torch.data import FeatureStore, load_test_videos
-from lstc_vad_tpu_torch.evaluation import drivers
+from lstc_vad_tpu_torch.evaluation import drivers, scoring
 from lstc_vad_tpu_torch.evaluation.scoring import (UCFBinnedScorer,
                                                    UCFClipBinScorer,
                                                    ucf_final_eval_scorer,
@@ -138,15 +138,15 @@ def test_final_eval_shapes_match_jax(preset_name):
 
 
 def test_binned_scorer_flushes_a_window_of_videos(monkeypatch):
-    """With a flush window of a few parts, the scores stay the same: the
-    window bounds what is resident, not what is computed."""
+    """With chunks of a few parts, the scores stay the same: the chunk
+    bounds what is resident, not what is computed."""
     cfg, (jenc, jhead, params), (enc, head) = _models("ucf_ltn")
     d = cfg.data
     items = _videos(1)
     full = UCFBinnedScorer(enc, head, d.part_len, d.n_patch,
                            **FLAG_SETS["pseudo"])
     want = full.score_videos(items)
-    monkeypatch.setattr(UCFBinnedScorer, "_FLUSH_PARTS", 12)
+    monkeypatch.setattr(scoring, "CHUNK", 12)
     windowed = UCFBinnedScorer(enc, head, d.part_len, d.n_patch,
                                **FLAG_SETS["pseudo"])
     got = windowed.score_videos(items)
