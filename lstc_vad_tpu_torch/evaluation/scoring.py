@@ -38,12 +38,19 @@ Every scorer hands its rows to one chunk packer (``_Packer``), which keeps a
 chunk per token length: variable-length tails (paths without tail
 re-windowing) are scored at their true length in chunks of their own —
 shorter sequences change the relative-PE slice, so padding them would NOT
-be equivalent (models/MultiHeadAttention.py:108).
+be equivalent (models/MultiHeadAttention.py:108).  The packer's float32
+copies into a chunk's host buffer run on a small pool of copy threads
+(``FILL_THREADS``, one pool a process): the unit thread plans and submits
+them, and a chunk is dispatched once its own copies have landed, so the card
+receives the same chunks as with copies made inline.
 """
 
 from __future__ import annotations
 
 import collections
+import concurrent.futures
+import os
+import threading
 from types import SimpleNamespace
 from typing import Dict, List, Tuple
 
@@ -58,6 +65,33 @@ from .frame_auc import (part_bounds, part_slices, ucf_bin_edges, ucf_bin_pool,
                         ucf_part_plan)
 
 CHUNK = 2048  # parts per device call (a 49-token f32 LTN chunk is ~0.8 GB)
+# The packer's copy threads.  On an 8-core H100 host an eval pass's pack stops
+# gaining past 4 of them (PERF.md); the unit thread, the reader and the CUDA
+# runtime's threads keep the other cores.
+FILL_THREADS = max(1, min(4, len(os.sched_getaffinity(0)) - 2))
+# A copy of fewer bytes runs inline on the unit thread: handing it to a copy
+# thread costs the unit thread more than copying it (a re-windowed tail's one
+# row, a short video).
+FILL_MIN_BYTES = 1 << 20
+# A larger copy goes to the copy threads in at most FILL_THREADS row ranges of
+# at least this many bytes: a video's block is one range, a long one is
+# split.  Each range costs the unit thread a hand-off, so ranges stay large.
+FILL_RANGE_BYTES = 8 << 20
+# The videos whose copies may be pending at once: each holds its array.
+FILL_VIDEOS = 2 * FILL_THREADS
+
+_pool_lock = threading.Lock()
+_pool = None
+
+
+def _fill_pool() -> concurrent.futures.ThreadPoolExecutor:
+    """The process's copy threads, started on first use."""
+    global _pool
+    with _pool_lock:
+        if _pool is None:
+            _pool = concurrent.futures.ThreadPoolExecutor(
+                FILL_THREADS, thread_name_prefix="scorer-fill")
+        return _pool
 
 
 def _read_ahead(feats_list, depth: int = 1):
@@ -66,14 +100,15 @@ def _read_ahead(feats_list, depth: int = 1):
     TestVideo.loader, frees each video before the next loads), loading
     ``depth`` videos ahead in a reader thread: video N+1's h5 read overlaps
     video N's host copy and device dispatch.  Steady-state liveness is
-    current + depth + 1 arrays.  Loader exceptions re-raise in the consumer.
+    current + depth + 1 arrays, and under ``_Packer`` those of at most
+    ``FILL_VIDEOS`` videos more, whose copies are pending.  Loader
+    exceptions re-raise in the consumer.
 
     If the consumer abandons the generator (a scoring exception, or an early
     close), the finally block signals the worker and drains the queue: the
     thread exits within its put-poll interval and every parked array is
     released."""
     import queue
-    import threading
 
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     done = object()
@@ -134,6 +169,23 @@ def fill(buf, index, value):
         buf[index] = torch.as_tensor(value)
 
 
+def _pooled_fill(buf, index, value):
+    """``fill`` on a copy thread."""
+    with annotate("scorer.fill"):
+        fill(buf, index, value)
+
+
+def _settle(copies, check: bool = True):
+    """Wait until every copy of ``copies`` has landed; then, with ``check``,
+    re-raise the first one's exception."""
+    if not all(f.done() for f in copies):
+        with annotate("scorer.fill_wait"):
+            concurrent.futures.wait(copies)
+    if check:
+        for f in copies:
+            f.result()
+
+
 def _scorer_apply(encoder, head, kind: str, l2: bool, x: torch.Tensor
                   ) -> torch.Tensor:
     # a narrower wire is upcast on the device: the compute stays f32
@@ -167,7 +219,9 @@ class VideoScorer:
     first (the UCF final eval).  ``transfer_dtype``: the wire type of the
     token batches (see the module's docstring).  Puts both modules in eval
     mode.  ``n_calls`` counts the encoder calls (one per dispatched
-    batch)."""
+    batch); ``fill_pooled_bytes`` and ``fill_inline_bytes`` the bytes of the
+    rows ``_Packer`` copied into its buffers on the copy threads and on the
+    unit thread."""
 
     def __init__(self, encoder, head, kind: str, l2_normalize: bool = False,
                  transfer_dtype: str = "float32"):
@@ -179,6 +233,8 @@ class VideoScorer:
         self.device = next(encoder.parameters()).device
         self.mesh = _data_parallel(getattr(encoder, "mesh", None))
         self.n_calls = 0
+        self.fill_pooled_bytes = 0
+        self.fill_inline_bytes = 0
 
     def host_buffer(self, shape):
         """A host buffer of the wire type to fill with tokens (``fill``):
@@ -286,6 +342,8 @@ class ArtifactVideoScorer(VideoScorer):
         self.device = loaded.device
         self.mesh = None
         self.n_calls = 0
+        self.fill_pooled_bytes = 0
+        self.fill_inline_bytes = 0
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.loaded.forward(x)
@@ -321,7 +379,14 @@ class _Packer:
     length), a buffer that fills is dispatched at once into one
     ``_Pipeline``, and its sink scatters the scores to the videos' arrays.
     ``finish`` dispatches the partly filled buffers, the shape seen first
-    going first, drains, and returns the arrays."""
+    going first, drains, and returns the arrays.
+
+    A float32 copy of ``FILL_MIN_BYTES`` or more runs on the copy threads,
+    in row ranges; a chunk is dispatched once its own copies have landed.
+    Used as a context manager, which on leaving waits for every copy still
+    pending: no copy writes into a buffer after the packer has let it go
+    (the caching host allocator hands a freed pinned block to the next
+    buffer)."""
 
     def __init__(self, scorer: VideoScorer):
         self.scorer = scorer
@@ -330,6 +395,16 @@ class _Packer:
         # the order in which the shapes were first seen
         self._open: Dict[tuple, SimpleNamespace] = {}
         self._pipe = _Pipeline()  # chunk N+1's copy beside chunk N's compute
+        # video -> its pooled copies, oldest video first
+        self._copies: "collections.OrderedDict[int, list]" = \
+            collections.OrderedDict()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        _settle([f for fs in self._copies.values() for f in fs],
+                check=exc_type is None)
 
     def video(self, n: int) -> int:
         """A score array of ``n`` rows for the next video; its index."""
@@ -346,18 +421,44 @@ class _Packer:
             if c is None:
                 c = self._open[shape] = SimpleNamespace(
                     buf=self.scorer.host_buffer((CHUNK,) + shape), filled=0,
-                    targets=[])
+                    targets=[], copies=[])
             take = min(CHUNK - c.filled, len(rows) - pos)
-            fill(c.buf, slice(c.filled, c.filled + take), rows[pos:pos + take])
+            self._fill(c, v, rows[pos:pos + take])
             c.targets.append((c.filled, v, i + pos, take))  # (row, v, i, k)
             c.filled += take
             pos += take
             if c.filled == CHUNK:
                 self._dispatch(shape)
 
+    def _fill(self, c, v: int, rows: np.ndarray):
+        """``rows`` into ``c.buf`` from row ``c.filled``: inline below
+        ``FILL_MIN_BYTES`` or into a narrower wire, else in row ranges of
+        ``FILL_RANGE_BYTES`` or more on the copy threads, with at most
+        ``FILL_VIDEOS`` videos' copies pending."""
+        n = len(rows)
+        # a torch buffer's copy casts to a narrower wire on torch's own
+        # threads already: a copy thread would only contend with them
+        if rows.nbytes < FILL_MIN_BYTES or not isinstance(c.buf, np.ndarray):
+            fill(c.buf, slice(c.filled, c.filled + n), rows)
+            self.scorer.fill_inline_bytes += rows.nbytes
+            return
+        pool = _fill_pool()
+        step = -(-n // max(1, min(FILL_THREADS, n,
+                                  rows.nbytes // FILL_RANGE_BYTES)))
+        copies = [pool.submit(_pooled_fill, c.buf,
+                              slice(c.filled + a, c.filled + min(a + step, n)),
+                              rows[a:a + step])
+                  for a in range(0, n, step)]
+        c.copies += copies
+        self._copies.setdefault(v, []).extend(copies)
+        self.scorer.fill_pooled_bytes += rows.nbytes
+        while len(self._copies) > FILL_VIDEOS:
+            _settle(self._copies.popitem(last=False)[1])
+
     def _dispatch(self, shape):
         c = self._open[shape]
         self._open[shape] = None
+        _settle(c.copies)
 
         def sink(scores):
             for row, v, i, k in c.targets:
@@ -393,14 +494,14 @@ class ClipScorer:
     def score_videos(self, feats_list: List[np.ndarray]) -> List[np.ndarray]:
         """All clips of all videos in chunk-sized batches, streamed: the
         whole test set's clips are never held at once."""
-        packer = _Packer(self.scorer)
-        for f in _read_ahead(feats_list):
-            with annotate("scorer.pack"):
-                t = np.ascontiguousarray(f[:, :self.n_patch, :],
-                                         dtype=np.float32)
-                del f
-                packer.add(packer.video(len(t)), 0, t)
-        return packer.finish()
+        with _Packer(self.scorer) as packer:
+            for f in _read_ahead(feats_list):
+                with annotate("scorer.pack"):
+                    t = np.ascontiguousarray(f[:, :self.n_patch, :],
+                                             dtype=np.float32)
+                    del f
+                    packer.add(packer.video(len(t)), 0, t)
+            return packer.finish()
 
 
 class PartScorer:
@@ -425,26 +526,28 @@ class PartScorer:
         the device and one encoder call per chunk of up to ``CHUNK`` parts
         of a token length.  Returns [(part_scores, counts)] aligned with
         ``feats_list``."""
-        packer = _Packer(self.scorer)
         all_counts: List[np.ndarray] = []
-        for feats in _read_ahead(feats_list):
-            with annotate("scorer.pack"):
-                feats = np.ascontiguousarray(feats[:, :self.n_patch, :],
-                                             dtype=np.float32)
-                n_clips, n_patch, d = feats.shape
-                idx_list, counts = part_slices(n_clips, self.part_len,
-                                               self.tail_rewindow)
-                all_counts.append(counts)
-                v = packer.video(len(idx_list))
-                # parts 0..n_aligned-1 are stride-aligned slices: one block
-                # off a reshape VIEW of the video.  The tail, re-windowed
-                # (full length, unaligned) or short, is one row of its own.
-                n_aligned = n_clips // self.part_len
-                packer.add(v, 0, feats[:n_aligned * self.part_len].reshape(
-                    n_aligned, self.part_len * n_patch, d))
-                for i in range(n_aligned, len(idx_list)):
-                    packer.add(v, i, feats[idx_list[i]].reshape(1, -1, d))
-        return list(zip(packer.finish(), all_counts))
+        with _Packer(self.scorer) as packer:
+            for feats in _read_ahead(feats_list):
+                with annotate("scorer.pack"):
+                    feats = np.ascontiguousarray(feats[:, :self.n_patch, :],
+                                                 dtype=np.float32)
+                    n_clips, n_patch, d = feats.shape
+                    idx_list, counts = part_slices(n_clips, self.part_len,
+                                                   self.tail_rewindow)
+                    all_counts.append(counts)
+                    v = packer.video(len(idx_list))
+                    # parts 0..n_aligned-1 are stride-aligned slices: one
+                    # block off a reshape VIEW of the video.  The tail,
+                    # re-windowed (full length, unaligned) or short, is one
+                    # row of its own.
+                    n_aligned = n_clips // self.part_len
+                    packer.add(v, 0, feats[:n_aligned * self.part_len]
+                               .reshape(n_aligned, self.part_len * n_patch, d))
+                    for i in range(n_aligned, len(idx_list)):
+                        packer.add(v, i,
+                                   feats[idx_list[i]].reshape(1, -1, d))
+            return list(zip(packer.finish(), all_counts))
 
 
 class UCFBinnedScorer:
@@ -497,19 +600,20 @@ class UCFBinnedScorer:
         before the next loads: the ~1,600 videos of the UCF train split
         stream as the other scorers' do."""
         items = list(items)
-        packer = _Packer(self.scorer)
         metas = []   # (parts, r) per video — small, kept for the return
-        for feats, (_, n) in zip(_read_ahead([f for f, _ in items]), items):
-            with annotate("scorer.pack"):
-                binned, parts, r = self._plan(feats, n)
-                del feats  # the raw video: only the pooled ``binned`` stays
-                metas.append((parts, r))
-                v = packer.video(len(parts))
-                for i, (beg, end) in enumerate(parts):
-                    packer.add(v, i, binned[beg:end].reshape(
-                        1, (end - beg) * self.n_patch, binned.shape[-1]))
-        return [(s, parts, r) for s, (parts, r) in zip(packer.finish(),
-                                                       metas)]
+        with _Packer(self.scorer) as packer:
+            for feats, (_, n) in zip(_read_ahead([f for f, _ in items]),
+                                     items):
+                with annotate("scorer.pack"):
+                    binned, parts, r = self._plan(feats, n)
+                    del feats  # the raw video: only ``binned`` stays
+                    metas.append((parts, r))
+                    v = packer.video(len(parts))
+                    for i, (beg, end) in enumerate(parts):
+                        packer.add(v, i, binned[beg:end].reshape(
+                            1, (end - beg) * self.n_patch, binned.shape[-1]))
+            return [(s, parts, r) for s, (parts, r) in zip(packer.finish(),
+                                                           metas)]
 
 
 class UCFClipBinScorer:
@@ -536,23 +640,24 @@ class UCFClipBinScorer:
         scores nothing, as the reference loop moves on
         (Train/spatio_transformer_UCF.py:123)."""
         items = list(items)
-        packer = _Packer(self.scorer)
         plans = []
-        for feats, (_, n_clips) in zip(_read_ahead([f for f, _ in items]),
-                                       items):
-            with annotate("scorer.pack"):
-                feats = np.ascontiguousarray(feats[:, :self.n_patch, :],
-                                             dtype=np.float32)
-                r = ucf_bin_edges(n_clips, self.max_clips)
-                bin_ids = [i for i in range(self.max_clips)
-                           if r[i] != r[i + 1]]
-                plans.append((np.asarray(bin_ids, np.int64), r))
-                v = packer.video(len(bin_ids))
-                for j, i in enumerate(bin_ids):
-                    packer.add(v, j, feats[r[i]:r[i + 1]].mean(axis=0)[None])
-                del feats
-        return [(s, bin_ids, r) for s, (bin_ids, r) in zip(packer.finish(),
-                                                           plans)]
+        with _Packer(self.scorer) as packer:
+            for feats, (_, n_clips) in zip(
+                    _read_ahead([f for f, _ in items]), items):
+                with annotate("scorer.pack"):
+                    feats = np.ascontiguousarray(feats[:, :self.n_patch, :],
+                                                 dtype=np.float32)
+                    r = ucf_bin_edges(n_clips, self.max_clips)
+                    bin_ids = [i for i in range(self.max_clips)
+                               if r[i] != r[i + 1]]
+                    plans.append((np.asarray(bin_ids, np.int64), r))
+                    v = packer.video(len(bin_ids))
+                    for j, i in enumerate(bin_ids):
+                        packer.add(v, j,
+                                   feats[r[i]:r[i + 1]].mean(axis=0)[None])
+                    del feats
+            return [(s, bin_ids, r) for s, (bin_ids, r)
+                    in zip(packer.finish(), plans)]
 
 
 def ucf_final_eval_shapes(cfg):

@@ -38,9 +38,13 @@ SPANS = {
     # scorers (evaluation/scoring.py)
     "scorer.read_wait": "the consumer waiting for the reader's next video",
     "scorer.read": "the reader thread loading one video's features",
-    "scorer.pack": "one video: slices, part plan, binning, chunk fill, "
-                   "flush",
+    "scorer.pack": "one video: slices, part plan, binning, chunk fill "
+                   "(inline, or submitted to the copy threads), flush",
     "scorer.alloc": "a new pinned chunk buffer",
+    "scorer.fill": "a copy thread copying one row range into a chunk buffer",
+    "scorer.fill_wait": "the unit thread waiting for pooled copies to land: "
+                        "a chunk's before its dispatch, the oldest video's "
+                        "at the cap, every one when the packer is left",
     "scorer.dispatch": "one device call: cast, copies and forward enqueued",
     "scorer.h2d": "the chunk's host-to-device copy enqueued",
     "scorer.forward": "the encoder and head enqueued",

@@ -145,6 +145,50 @@ def test_eval_pass_spans_nest_and_count(tmp_path, monkeypatch):
         assert {s["tid"] for s in _named(spans, name)} == {unit}, name
 
 
+def test_pooled_fill_spans(tmp_path, monkeypatch):
+    """Every copy on the copy threads (``FILL_MIN_BYTES`` of one byte), each
+    slowed so the unit thread waits for some: ``scorer.fill`` on threads of
+    their own, ``scorer.fill_wait`` on the unit thread inside a video's pack
+    or the pass, and still one ``scorer.pack`` a video."""
+    monkeypatch.setattr(scoring, "CHUNK", 8)
+    monkeypatch.setattr(scoring, "FILL_MIN_BYTES", 1)
+    monkeypatch.setattr(scoring, "FILL_RANGE_BYTES", 1)
+    fill = scoring.fill
+
+    def slow(buf, index, value):
+        time.sleep(0.002)
+        fill(buf, index, value)
+
+    monkeypatch.setattr(scoring, "fill", slow)
+    assert {"scorer.fill", "scorer.fill_wait"} <= set(SPANS)
+    scorer = _part_scorer("cpu")
+    items = _split(3)
+    with trace(str(tmp_path)):
+        _eval_pass(scorer, items)
+    assert scorer.scorer.fill_inline_bytes == 0
+    assert scorer.scorer.fill_pooled_bytes > 0
+    spans = _spans(str(tmp_path))
+    (score,) = _named(spans, "eval.score")
+    unit = score["tid"]
+    assert len(_named(spans, "scorer.pack")) == len(items)
+    fills = _named(spans, "scorer.fill")
+    assert fills and unit not in {s["tid"] for s in fills}
+    assert _parents(spans, "scorer.fill") == {None}
+    waits = _named(spans, "scorer.fill_wait")
+    assert waits and {s["tid"] for s in waits} == {unit}
+    assert _parents(spans, "scorer.fill_wait") <= {"scorer.pack",
+                                                   "eval.score"}
+
+
+def test_perf_md_names_the_scorers_spans_and_counters():
+    perf = (PORT.parent / "PERF.md").read_text()
+    (row,) = [line for line in perf.splitlines()
+              if line.startswith("| scorers |")]
+    for name in ("scorer.fill", "scorer.fill_wait", "fill_pooled_bytes",
+                 "fill_inline_bytes"):
+        assert name in row, name
+
+
 def test_eval_results_are_the_same_traced(tmp_path):
     scorer = _part_scorer("cpu")
     items = _split(1)
