@@ -24,10 +24,13 @@ over batch; mask: broadcastable to [B, H, L, L], nonzero = keep.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..utils.profiling import annotate
 
 MASK_FILL = -1e9
 # "auto" and "plain" are this package's; "pallas" and "xla" are the JAX
@@ -110,7 +113,8 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel computes none of them, as JAX's "pallas" takes its XLA path
     there.  ``dropout_mask`` goes with the dropout to the plain path
     (``plain_sdpa``).  That choice is made from the arguments, never by
-    catching a kernel failure."""
+    catching a kernel failure.  On CUDA tensors the plain path is the
+    span ``attention.plain`` (its forward; the backward is autograd's)."""
     if impl not in IMPLS:
         # a typo'd config knob must not silently run the plain path while
         # the user believes they are exercising the kernel
@@ -118,9 +122,10 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"expected one of {IMPLS}")
     if impl not in KERNEL_IMPLS or mask is not None or dropout_p > 0.0 \
             or return_probs:
-        return plain_sdpa(q, k, v, temperature, bias=bias, mask=mask,
-                          dropout_p=dropout_p, return_probs=return_probs,
-                          dropout_mask=dropout_mask)
+        with annotate("attention.plain") if q.is_cuda else nullcontext():
+            return plain_sdpa(q, k, v, temperature, bias=bias, mask=mask,
+                              dropout_p=dropout_p, return_probs=return_probs,
+                              dropout_mask=dropout_mask)
     from .cuda_attention import attention
 
     return attention(q, k, v, bias, temperature)

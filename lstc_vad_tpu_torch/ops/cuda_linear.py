@@ -40,6 +40,11 @@ exported program that holds it needs the import before
 ``launches`` counts the forward launches of the kernel and
 ``launches_dgrad`` the input-gradient launches.  A run resets them to 0 and
 reads them afterwards to show that its Linears went through the kernel.
+``pad_copies`` counts the copies of an operand into a padded row stride
+(``_tma_rows``: a forward's x into ``w_2``, a backward's dY out of ``w_1``
+at d_inner 3027) and ``pad_bytes`` what they move, the rows read and
+written once (2 · M · width · 4 bytes a copy); each copy is the span
+``linear.pad``.  ``reset_launches`` resets all four.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import annotate
 from . import _build
 
 OP_NAME = "lstc_vad::linear"
@@ -59,6 +65,8 @@ ALIGN = 4  # f32 elements in 16 bytes: the row strides TMA takes
 
 launches = 0        # forward launches of the kernel
 launches_dgrad = 0  # input-gradient launches of the kernel
+pad_copies = 0      # operands copied into a padded row stride
+pad_bytes = 0       # bytes those copies read and wrote
 
 
 def check_kernel(dtype: torch.dtype, n: int, k: int):
@@ -75,8 +83,8 @@ def check_kernel(dtype: torch.dtype, n: int, k: int):
 
 
 def reset_launches():
-    global launches, launches_dgrad
-    launches = launches_dgrad = 0
+    global launches, launches_dgrad, pad_copies, pad_bytes
+    launches = launches_dgrad = pad_copies = pad_bytes = 0
 
 
 @functools.cache
@@ -121,13 +129,17 @@ def _tma_rows(t: torch.Tensor):
     where its width is not a multiple of 4, a copy whose rows are padded to
     one (the padding unwritten: TMA reads the columns past the width as
     zeros)."""
+    global pad_copies, pad_bytes
     width = t.shape[-1]
     ld = _padded(width)
     if ld == width:
         return _rows(t), ld
-    rows = t.reshape(-1, width)
-    out = rows.new_empty(rows.shape[0], ld)
-    out[:, :width] = rows
+    with annotate("linear.pad"):
+        rows = t.reshape(-1, width)
+        out = rows.new_empty(rows.shape[0], ld)
+        out[:, :width] = rows
+    pad_copies += 1
+    pad_bytes += 2 * rows.numel() * rows.element_size()
     return out, ld
 
 

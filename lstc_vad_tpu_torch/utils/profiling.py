@@ -9,7 +9,8 @@
   a profiler runs).
 - ``SPANS``: every span name the program records, each with its meaning.
   Spans sit at layer boundaries of the eval pass and the train epoch,
-  never one per part, clip or kernel launch.
+  never one per part, clip or kernel launch; the two operator spans
+  (``linear.pad``, ``attention.plain``) come once per encoder layer call.
 - ``trace(logdir)``: a context manager that profiles the host, every
   thread of it, and, when a card is visible, the device, and writes a
   Chrome trace (``<logdir>/trace.json``, viewable in Perfetto or
@@ -67,6 +68,12 @@ SPANS = {
     "step.forward": "the loss under the step's RNG and layout contexts",
     "step.backward": "the backward and the gradient all-reduce",
     "step.optim": "gradient clipping and the Adagrad update",
+    # operators (ops/cuda_linear.py, ops/attention.py), CUDA tensors only
+    "linear.pad": "a GEMM operand's rows copied into a padded row stride "
+                  "(a width off the 16-byte grid: d_inner 3027), on the "
+                  "thread that runs the product, the backward's too",
+    "attention.plain": "plain_sdpa's forward, the path a train step takes "
+                       "under attention dropout",
 }
 
 _NULL = contextlib.nullcontext()

@@ -180,6 +180,33 @@ def test_pooled_fill_spans(tmp_path, monkeypatch):
                                                    "eval.score"}
 
 
+def test_operator_spans_are_known():
+    assert SPANS.keys() >= {"linear.pad", "attention.plain"}
+
+
+@pytest.mark.parametrize("width,padded", [(31, True), (3027, True),
+                                          (32, False), (4096, False)])
+def test_padded_copy_counts_and_span(tmp_path, width, padded):
+    """``_tma_rows`` copies rows off the 16-byte grid into a padded row
+    stride, counts the copy and the bytes it reads and writes (2 · M ·
+    width · 4) and records it as ``linear.pad``; aligned rows it leaves
+    alone.  (On CPU tensors the operator itself never calls it.)"""
+    from lstc_vad_tpu_torch.ops import cuda_linear
+
+    x = torch.randn(3, 5, width)
+    cuda_linear.reset_launches()
+    with trace(str(tmp_path)):
+        rows, ld = cuda_linear._tma_rows(x)
+    assert ld == -(-width // 4) * 4 and rows.shape == (15, ld if padded
+                                                       else width)
+    assert torch.equal(rows[:, :width], x.reshape(15, width))
+    assert cuda_linear.pad_copies == int(padded)
+    assert cuda_linear.pad_bytes == (2 * 15 * width * 4 if padded else 0)
+    assert len(_named(_spans(str(tmp_path)), "linear.pad")) == int(padded)
+    cuda_linear.reset_launches()
+    assert cuda_linear.pad_copies == cuda_linear.pad_bytes == 0
+
+
 def test_perf_md_names_the_scorers_spans_and_counters():
     perf = (PORT.parent / "PERF.md").read_text()
     (row,) = [line for line in perf.splitlines()
@@ -313,3 +340,43 @@ def test_card_dispatch_spans(card, tmp_path):
     with open(os.path.join(str(tmp_path), profiling.TRACE_FILE)) as f:
         assert any(e.get("cat") == "kernel"
                    for e in json.load(f)["traceEvents"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,copies", [("sht_stn", 3), ("sht_ltn", 0)])
+def test_card_operator_spans_and_pad_counters(card, tmp_path, name, copies):
+    """One train-mode forward and backward at full width: at d_inner 3027
+    (``sht_stn``) 3 padded copies a forward (x into ``w_2``) and 3 a
+    backward (dY out of ``w_1``), each [M, 3027] read and written once,
+    the backward's ``linear.pad`` spans on autograd's thread; at d_inner
+    4096 (``sht_ltn``) none.  Under attention dropout every layer's
+    attention is one ``attention.plain`` span on the forward's thread."""
+    from lstc_vad_tpu_torch.ops import cuda_linear
+
+    cfg = preset(name)
+    encoder, head = build(cfg, device=card, seed=0)
+    encoder.train()
+    head.train()
+    n, tokens = 64, cfg.data.n_patch * (1 if name == "sht_stn"
+                                        else cfg.data.part_len)
+    x = torch.randn(n, tokens, cfg.encoder.d_model, device=card)
+    m, width = n * (tokens + 1), cfg.encoder.d_inner
+    cuda_linear.reset_launches()
+    with trace(str(tmp_path)):
+        out = head(encoder(x)[:, 0])
+        assert cuda_linear.pad_copies == copies
+        assert cuda_linear.pad_bytes == copies * 2 * m * width * 4
+        out.sum().backward()
+        torch.cuda.synchronize(card)
+    assert cuda_linear.pad_copies == 2 * copies
+    assert cuda_linear.pad_bytes == 2 * copies * 2 * m * width * 4
+    spans = _spans(str(tmp_path))
+    pads, attn = _named(spans, "linear.pad"), _named(spans, "attention.plain")
+    assert len(pads) == 2 * copies
+    assert len(attn) == cfg.encoder.n_layers
+    forward = {s["tid"] for s in attn}
+    assert len(forward) == 1
+    if copies:
+        # the forward's copies on its thread, the backward's on autograd's
+        assert len([s for s in pads if s["tid"] in forward]) == copies
+        assert len({s["tid"] for s in pads} - forward) == 1
