@@ -46,7 +46,10 @@
    FP32's own), two calls bit-equal, timed beside its bound (2·M·N·K at
    165 TFLOP/s), cuBLAS FP32 (``library_ms``) and the same 3xTF32 split as
    three cuBLAS TF32 products (``split_tf32_ms``); the STN presets'
-   d_inner 3027 (rows not whole 16 bytes) among the shapes.
+   d_inner 3027 (rows not whole 16 bytes) among the shapes.  Then its
+   weight gradient dYᵀ·X (``wgrad`` lines) at the train cells' shapes
+   (GEMM_WGRAD_SHAPES), held and timed the same way, cuBLAS FP32's
+   ``torch.matmul`` as ``library_ms``.
 3. Slice phase (the main path): LTN scoring to frame AUC at full sht_ltn
    width (3 layers, d_model 2048, d_inner 4096, 8 heads, d_k 256) with
    random weights from a torch.Generator seeded 0, over synthetic features
@@ -321,6 +324,13 @@ GEMM_SHAPES = (
 GEMM_DGRAD_SHAPES = ((1280 * 49, 2048, 2048), (1280 * 49, 4096, 2048),
                      (1280 * 49, 2048, 4096), (640 * 112, 3027, 2048),
                      (640 * 112, 2048, 3027))
+# the weight gradient dYᵀ·X (M, N, K: dY [M, N], x [M, K]) at the train
+# cells' steps: sht_ltn's 1,280 parts of 49 tokens (q, k, v and fc; w_1;
+# w_2) and sht_stn's 8,960 clips of 17 tokens (w_1, dY padded; w_2, x
+# padded, the copy timed with the product)
+GEMM_WGRAD_SHAPES = ((1280 * 49, 2048, 2048), (1280 * 49, 4096, 2048),
+                     (1280 * 49, 2048, 4096), (8960 * 17, 3027, 2048),
+                     (8960 * 17, 2048, 3027))
 
 
 def card_line() -> str:
@@ -373,6 +383,7 @@ def _instantiation(entry: str) -> str:
     tiled = re.search(r"^_ZN\w*attention_bf16_kernelILi(\d+)ELi(\d+)E", entry)
     tiled32 = re.search(r"attention_fwd_kernelILi(\d+)ELi(\d+)E", entry)
     gemm = re.search(r"gemm_kernelILi(\d+)E", entry)
+    wgrad = re.search(r"wgrad_kernelILi(\d+)E", entry)
     return (f"bf16 stream NB={bf16.group(1)} NC={bf16.group(2)} "
             f"KEYS={bf16.group(3)}" if bf16
             else f"bf16 stream NB={bf16_split.group(1)} "
@@ -381,6 +392,7 @@ def _instantiation(entry: str) -> str:
             else f"bf16 NC={tiled.group(1)} DB={tiled.group(2)}" if tiled
             else f"f32 NC={tiled32.group(1)} NK={tiled32.group(2)}" if tiled32
             else f"gemm BN={gemm.group(1)}" if gemm
+            else f"gemm wgrad BN={wgrad.group(1)}" if wgrad
             else "gemm split" if "split_kernel" in entry
             else entry)
 
@@ -446,33 +458,45 @@ def split_tf32_linear(x, w, b):
 
 
 def check_gemm(m: int, n: int, k: int, with_bias: bool, dev,
-               dgrad: bool = False) -> dict:
+               mode: str = "forward") -> dict:
     """csrc/gemm.cu at M, N, K against the same product in float64 and
     against cuBLAS FP32 (``F.linear`` / ``torch.matmul``, TF32 off), whose
     error against float64 is the bar: the kernel's largest error may be at
     most GEMM_ERR_RATIO times cuBLAS's (GEMM_SHALLOW_ERR_RATIO below a
-    depth of GEMM_SHALLOW_K).  ``dgrad``: the input gradient dY·W
-    (dY [M, N] a product over N into K columns, through the weight's
-    transposed halves), else the forward x·Wᵀ + b.  Two calls must give the
-    same bits.  Times the kernel (the weight's split included), cuBLAS FP32
-    (``library_ms``) and the 3-product TF32 split on cuBLAS
-    (``split_tf32_ms``), beside the bound 2·M·N·K / 165 TFLOP/s."""
+    depth of GEMM_SHALLOW_K).  ``mode``: ``forward``, x·Wᵀ + b; ``dgrad``,
+    the input gradient dY·W (dY [M, N] a product over N into K columns,
+    through the weight's transposed halves); ``wgrad``, the weight gradient
+    dYᵀ·X (dY [M, N], x [M, K], a product over M into [N, K]).  Two calls
+    must give the same bits.  Times the kernel (the weight's split, or a
+    ragged operand's padded copy, included), cuBLAS FP32 (``library_ms``)
+    and the 3-product TF32 split on cuBLAS (``split_tf32_ms``), beside the
+    bound 2·M·N·K / 165 TFLOP/s."""
     import torch
     import torch.nn.functional as F
 
     from lstc_vad_tpu_torch.ops import cuda_linear
 
+    dgrad, wgrad = mode == "dgrad", mode == "wgrad"
     g = torch.Generator(device=dev).manual_seed(m * 7 + n * 3 + k)
     w = torch.randn(n, k, generator=g, device=dev) / k ** 0.5
-    b = (torch.randn(n, generator=g, device=dev) if with_bias and not dgrad
-         else None)
-    if dgrad:
+    b = (torch.randn(n, generator=g, device=dev)
+         if with_bias and mode == "forward" else None)
+    depth = {"forward": k, "dgrad": n, "wgrad": m}[mode]
+    flops = 2 * m * n * k
+    if wgrad:
+        del w
+        a = torch.randn(m, n, generator=g, device=dev)
+        x = torch.randn(m, k, generator=g, device=dev)
+        run = lambda: cuda_linear.gemm_wgrad(a, x)  # noqa: E731
+        lib = lambda: torch.matmul(a.t(), x)  # noqa: E731
+        split = lambda: split_tf32_linear(a.t(), x.t(), None)  # noqa: E731
+        want = a.double().t() @ x.double()
+    elif dgrad:
         a = torch.randn(m, n, generator=g, device=dev)
         run = lambda: cuda_linear.gemm(a, w, None, transpose=True)  # noqa
         lib = lambda: torch.matmul(a, w)  # noqa: E731
         split = lambda: split_tf32_linear(a, w.t(), None)  # noqa: E731
         want = (a.double() @ w.double()).float()
-        flops = 2 * m * n * k
     else:
         a = torch.randn(m, k, generator=g, device=dev)
         run = lambda: cuda_linear.linear(a, w, b)  # noqa: E731
@@ -482,13 +506,12 @@ def check_gemm(m: int, n: int, k: int, with_bias: bool, dev,
         if b is not None:
             want64 += b.double()
         want = want64
-        flops = 2 * m * n * k
     with torch.no_grad():
         before = cuda_linear.launches
         got = run()
         again = run()
         torch.cuda.synchronize()
-        if not dgrad and cuda_linear.launches != before + 2:
+        if mode == "forward" and cuda_linear.launches != before + 2:
             raise AssertionError(f"gemm M={m} N={n} K={k}: the operator did "
                                  f"not take the kernel: "
                                  f"{cuda_linear.launches - before} launches")
@@ -508,7 +531,7 @@ def check_gemm(m: int, n: int, k: int, with_bias: bool, dev,
         split_ms = cuda_ms(split)
     bound_ms = flops / F32_FLOP_PER_S * 1e3
     row = {"M": m, "N": k if dgrad else n, "K": n if dgrad else k,
-           "bias": b is not None, "dgrad": dgrad, "ms": ms,
+           "bias": b is not None, "dgrad": dgrad, "wgrad": wgrad, "ms": ms,
            "library_ms": lib_ms, "split_tf32_ms": split_ms,
            "bound_ms": bound_ms, "tflops": flops / ms / 1e9,
            "library_tflops": flops / lib_ms / 1e9,
@@ -517,7 +540,7 @@ def check_gemm(m: int, n: int, k: int, with_bias: bool, dev,
            "err_ratio": err / max(lib_err, 1e-30),
            "mean_err_ratio": mean_err / max(lib_mean, 1e-30),
            "bit_equal_twice": same}
-    ratio = GEMM_ERR_RATIO if (n if dgrad else k) >= GEMM_SHALLOW_K \
+    ratio = GEMM_ERR_RATIO if depth >= GEMM_SHALLOW_K \
         else GEMM_SHALLOW_ERR_RATIO
     if not np.isfinite(err) or err > ratio * lib_err or not same:
         raise AssertionError(f"gemm kernel off at {row}")
@@ -526,13 +549,16 @@ def check_gemm(m: int, n: int, k: int, with_bias: bool, dev,
 
 def run_gemm(dev) -> list:
     """The GEMM phase: ``check_gemm`` at every shape of GEMM_SHAPES (forward)
-    and GEMM_DGRAD_SHAPES (input gradient); prints a ``gemm`` line each."""
-    cases = [(m, n, k, bias, False) for m, n, k, bias in GEMM_SHAPES]
-    cases += [(m, n, k, False, True) for m, n, k in GEMM_DGRAD_SHAPES]
+    and GEMM_DGRAD_SHAPES (input gradient), a ``gemm`` line each, and of
+    GEMM_WGRAD_SHAPES (weight gradient), a ``wgrad`` line each."""
+    cases = [(m, n, k, bias, "forward") for m, n, k, bias in GEMM_SHAPES]
+    cases += [(m, n, k, False, "dgrad") for m, n, k in GEMM_DGRAD_SHAPES]
+    cases += [(m, n, k, False, "wgrad") for m, n, k in GEMM_WGRAD_SHAPES]
     rows = []
-    for m, n, k, bias, dgrad in cases:
-        rows.append(check_gemm(m, n, k, bias, dev, dgrad))
-        print("gemm " + json.dumps(rows[-1]), flush=True)
+    for m, n, k, bias, mode in cases:
+        rows.append(check_gemm(m, n, k, bias, dev, mode))
+        line = "wgrad " if mode == "wgrad" else "gemm "
+        print(line + json.dumps(rows[-1]), flush=True)
     return rows
 
 
@@ -2778,14 +2804,15 @@ def main() -> int:
         the last path), then set to 0.  Every forward call on the card must
         have launched the kernel, at least six times (a layer's Linears) for
         each of the path's f32 attention launches (``attention``), and a
-        path that trains in this process (``trains``) its input
-        gradients."""
+        path that trains in this process (``trains``) its input and its
+        weight gradients."""
         row = {"launches": cuda_linear.launches,
-               "launches_dgrad": cuda_linear.launches_dgrad}
+               "launches_dgrad": cuda_linear.launches_dgrad,
+               "launches_wgrad": cuda_linear.launches_wgrad}
         gemm_by_path[name] = row
         cuda_linear.reset_launches()
-        if row["launches"] < 6 * attention \
-                or (trains and not row["launches_dgrad"]):
+        if row["launches"] < 6 * attention or (trains and not (
+                row["launches_dgrad"] and row["launches_wgrad"])):
             raise AssertionError(
                 f"the {name} path's Linears left the GEMM kernel: {row}; "
                 f"{attention} f32 attention launches, trains: {trains}")
@@ -3030,6 +3057,8 @@ def main() -> int:
         "source": "lstc_vad_tpu_torch/csrc/gemm.cu", "replaces": None,
         "launches": sum(r["launches"] for r in gemm_by_path.values()),
         "launches_dgrad": sum(r["launches_dgrad"]
+                              for r in gemm_by_path.values()),
+        "launches_wgrad": sum(r["launches_wgrad"]
                               for r in gemm_by_path.values()),
         "launches_by_path": gemm_by_path,
         "max_err_ratio": max(r["err_ratio"] for r in gemm_rows),

@@ -66,6 +66,53 @@
 //   whole 16 bytes, which a TMA store needs), each thread stores its sums
 //   from registers, the rows past M and the columns past N left out.
 //
+// The weight gradient, lstc_gemm_wgrad: dW[N, K] = dY[M, N]^T · X[M, K],
+// the sums over M, the tokens.  Both operands arrive MN-major (M is their
+// row index), and TF32 wgmma reads only K-major ones, so each has to be
+// turned on the way.  It replaces no TPU kernel either (XLA computed the
+// JAX package's Dense gradients; the port ran them on cuBLAS's FP32 SIMT
+// sgemm).  It is bound by operations as the forward is: 2·M·N·K at 165
+// TFLOP/s against (M·N + M·K + N·K)·4 bytes at 3.35 TB/s.  It keeps the
+// forward's shape (persistent warp-specialised blocks, 128 x BN tiles of
+// dW in raster groups, 32-deep stages, 3xTF32, each stage's products
+// summed from zero and added in IEEE f32, no split of M and no atomics, so
+// two calls give the same bits), and what is new is the turn:
+// - A = dY^T in registers.  dY's 32 rows x 128 columns land raw (four
+//   boxes); each consumer thread loads its A words with transposed
+//   addressing and splits them in registers, as the forward does A.  The
+//   tile's rows are dealt to the accumulator rows in an order that puts
+//   each load of a warp on 32 distinct banks.
+// - B = X^T by the producer warpgroup, as the f32 streaming attention
+//   kernel turns V into V^T (csrc/attention_stream.cu): X's 32 rows x BN
+//   columns land raw in a ring of landing zones beside dY's; three warps
+//   of the producer warpgroup split them into TF32 halves written
+//   transposed, M contiguous, into a ring of ready slots, each slot with a
+//   full and an empty mbarrier.  A landing zone is freed once its A is in
+//   registers and its X split, so the TMA runs ahead of the split and the
+//   split ahead of the products.
+// - Both operands are split by hopper.cuh's split, not the forward's
+//   split_rn: big rounded to TF32, small the exact rest, which the tensor
+//   core truncates as it reads it.  Three operations an element where
+//   split_rn takes five, and the split runs on twice the elements the
+//   forward splits; each product's error stays under 2^-19 of it (against
+//   split_rn's 2^-21), which the f32 sums over M's thousands of rows
+//   outweigh: dW sits at 0.3-0.5x cuBLAS FP32's error against float64
+//   (tests/test_torch_cuda_linear.py).
+// - What bounds it.  A stage moves ~192 KB through shared memory: dY and X
+//   landed (32 KB), read (32 KB), X's halves written (32 KB) and read by
+//   wgmma (96 KB: each warpgroup's m64 products read all of B), against
+//   the forward's ~160 KB; at the tensor core's 3xTF32 rate that is all
+//   of shared memory's 128 bytes a cycle, so shared memory and the card's
+//   power hold the kernel rather than the tensor core alone; the design keeps
+//   every other cost off that path: dY never leaves registers split, X is
+//   split once for both warpgroups, and no stage waits on device memory.
+//   The transposed copy of dY and X in device memory that this avoids
+//   would move ~32 GB a step at the LTN's widths.
+// - Rows of M past the end are zero-filled by TMA, so a ragged M costs
+//   nothing; the epilogue stores from registers (it runs once a tile of
+//   M / 32 stages).  Tiles 128 x 128, or 128 x 64 where 128-column ones
+//   would leave SMs without one; the encoder's widths give at least 128.
+//
 // Interface: plain C functions, loaded with ctypes.  They launch on the
 // caller's stream, do not synchronise, allocate nothing, and return a
 // cudaError_t (0 = launched).
@@ -312,6 +359,237 @@ gemm_kernel(const __grid_constant__ Params p,
   if (tid == 0) bulk_wait_all();
 }
 
+// ------------------------------------------------------- weight gradient
+
+constexpr int kMBox = kBK * kRowBytes;  // a landed box: 32 rows of M
+constexpr int kReady = 3;               // ready slots of the B ring
+constexpr int kSplitters = kWG - 32;    // the producer warpgroup's warps 1-3
+constexpr int kWgradProducerRegs = 56;
+constexpr int kWgradConsumerRegs = 224;
+
+template <int BN>
+struct WTile {
+  static constexpr int DY = (kBM / kBK) * kMBox;  // dY's 128 columns: 16 KB
+  static constexpr int X = (BN / kBK) * kMBox;    // X's BN columns
+  static constexpr int LAND = DY + X;             // a landing zone
+  static constexpr int HALF = BN * kRowBytes;     // a half of B = X^T
+  static constexpr int SLOT = 2 * HALF;           // a ready slot
+  static constexpr int FIT =
+      (kMaxSmem - kReady * SLOT - 16 * (kMaxStages + kReady)) / LAND;
+  static constexpr int LANDS = FIT < kMaxStages ? FIT : kMaxStages;
+  // the ready slots, the landing zones, a full and an empty barrier each
+  static constexpr int SMEM = kReady * SLOT + LANDS * LAND +
+                              16 * (LANDS + kReady);
+};
+
+// a landed stage of X (32 rows of M x BN columns of K, BN / 32 boxes) into
+// a ready slot: B = X^T, BN rows of K x 32 of M (K-major for wgmma), as
+// its big and small halves, 128-byte swizzled.  Unit u = 8d + l takes
+// rows 4q .. 4q + 3 of M, q = (l + d) % 8, and columns 4j .. 4j + 3 of K,
+// j = 8(d / 8) + l: the 8 units of an 8-lane phase read 8 distinct
+// 16-byte bank groups and write 8 distinct ones
+template <int BN>
+__device__ __forceinline__ void split_transposed(const char* land, char* slot,
+                                                 int st) {
+  using T = WTile<BN>;
+  for (int u = st; u < 2 * BN; u += kSplitters) {
+    const int l = u & 7, d = u >> 3;
+    const int q = (l + d) & 7, j = 8 * (d >> 3) + l;
+    const char* const box = land + (j >> 3) * kMBox;
+    float4 x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = 4 * q + e;
+      x[e] = *reinterpret_cast<const float4*>(box + m * kRowBytes +
+                                               (((j ^ m) & 7) << 4));
+    }
+    const float col[4][4] = {{x[0].x, x[1].x, x[2].x, x[3].x},
+                             {x[0].y, x[1].y, x[2].y, x[3].y},
+                             {x[0].z, x[1].z, x[2].z, x[3].z},
+                             {x[0].w, x[1].w, x[2].w, x[3].w}};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int n = 4 * j + i;
+      char* const dst = slot + n * kRowBytes + (((q ^ n) & 7) << 4);
+      uint32_t b[4], s[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split(col[i][e], b[e], s[e]);
+      *reinterpret_cast<uint4*>(dst) = make_uint4(b[0], b[1], b[2], b[3]);
+      *reinterpret_cast<uint4*>(dst + T::HALF) =
+          make_uint4(s[0], s[1], s[2], s[3]);
+    }
+  }
+}
+
+// dW = dY^T · X: C = dW [N, K] of tiles 128 x BN, the sums over M.  In
+// Params, M and N are C's rows and columns (the Linear's N and K), K the
+// depth (the Linear's M); c is dW.
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+wgrad_kernel(const __grid_constant__ Params p,
+             const __grid_constant__ CUtensorMap tdy,
+             const __grid_constant__ CUtensorMap tx) {
+  using T = WTile<BN>;
+  constexpr int L = T::LANDS, R = kReady, NA = BN / 2;
+  extern __shared__ __align__(1024) char smem[];
+  if (smem_u32(smem) % kAlign) __trap();
+  char* const ready = smem;
+  char* const landing = smem + R * T::SLOT;
+  const uint32_t bar0 = smem_u32(landing + L * T::LAND);
+  auto land_full = [&](int s) { return bar0 + 8 * s; };
+  auto land_empty = [&](int s) { return bar0 + 8 * (L + s); };
+  auto ready_full = [&](int s) { return bar0 + 8 * (2 * L + s); };
+  auto ready_empty = [&](int s) { return bar0 + 8 * (2 * L + R + s); };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L; ++s) {
+      mbar_init(land_full(s), 1);
+      mbar_init(land_empty(s), 2 * kWG);
+    }
+    for (int s = 0; s < R; ++s) {
+      mbar_init(ready_full(s), kSplitters);
+      mbar_init(ready_empty(s), 2 * kWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 2 * kWG) {
+    // -------------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+                     kWgradProducerRegs)
+                 : "memory");
+    const int pt = threadIdx.x - 2 * kWG;
+    int it = 0;
+    if (pt < 32) {
+      // one thread keeps the landing zones in flight: dY's 128 columns and
+      // X's BN columns of 32 rows of M a stage
+      if (pt != 0) return;
+      for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
+        int mt, nt;
+        tile_of(p, tile, mt, nt);
+        for (int kb = 0; kb < p.n_k; ++kb, ++it) {
+          const int s = it % L, use = it / L;
+          if (use > 0) mbar_wait(land_empty(s), (use - 1) & 1);
+          const uint32_t dst = smem_u32(landing + s * T::LAND);
+          mbar_arrive_tx(land_full(s), T::LAND);
+#pragma unroll
+          for (int b = 0; b < kBM / kBK; ++b)
+            tma_load_2d(dst + b * kMBox, &tdy, land_full(s),
+                        kBM * mt + kBK * b, kBK * kb);
+#pragma unroll
+          for (int b = 0; b < BN / kBK; ++b)
+            tma_load_2d(dst + T::DY + b * kMBox, &tx, land_full(s),
+                        BN * nt + kBK * b, kBK * kb);
+        }
+      }
+      return;
+    }
+    // the other three warps turn each landed X into B's halves
+    for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x)
+      for (int kb = 0; kb < p.n_k; ++kb, ++it) {
+        const int s = it % L, r = it % R;
+        mbar_wait(land_full(s), (it / L) & 1);
+        if (it >= R) mbar_wait(ready_empty(r), (it / R - 1) & 1);
+        split_transposed<BN>(landing + s * T::LAND + T::DY,
+                             ready + r * T::SLOT, pt - 32);
+        fence_async_smem();
+        mbar_arrive(ready_full(r));
+      }
+    return;
+  }
+
+  // ---------------------------------------------------- consumer warpgroups
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+                   kWgradConsumerRegs)
+               : "memory");
+  const int wg = threadIdx.x / kWG, tid = threadIdx.x % kWG;
+  const int warp = tid / 32, lane = tid % 32;
+  const int t = lane & 3, g = lane >> 2;
+  // the tile's rows of this thread's sums 16 warp + g and 16 warp + g + 8:
+  // C rows n0 and n0 + 4, chosen so that each load of A (dY^T, read from
+  // dY's landed boxes: rows of M, 128-byte swizzled) falls on 32 distinct
+  // banks over the warp
+  const int n0 = 64 * wg + 32 * (warp >> 1) + 8 * (warp & 1) +
+                 16 * (g >> 2) + (g & 3);
+  // byte offset of dY's (row m, column n) in a landing zone, m < 8
+  auto at = [](int m, int n) {
+    return (n >> 5) * kMBox + m * kRowBytes +
+           (((((n & 31) >> 2) ^ m) & 7) << 4) + 4 * (n & 3);
+  };
+  // A's k-slots t and t + 4 of k-step kk are rows 8kk + t and 8kk + t + 4
+  const int o0 = at(t, n0), o1 = at(t, n0 + 4), o2 = at(t + 4, n0),
+            o3 = at(t + 4, n0 + 4);
+  float c[NA], acc[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) acc[i] = 0.f;
+  int it = 0;
+
+  for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
+    int mt, nt;
+    tile_of(p, tile, mt, nt);
+#pragma unroll
+    for (int i = 0; i < NA; ++i) c[i] = 0.f;
+
+#pragma unroll 1
+    for (int kb = 0; kb < p.n_k; ++kb, ++it) {
+      const int s = it % L, r = it % R;
+      const char* const dy = landing + s * T::LAND;
+      mbar_wait(land_full(s), (it / L) & 1);
+      uint32_t ab[4][4], as[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const char* const row = dy + kk * 8 * kRowBytes;
+        split(*reinterpret_cast<const float*>(row + o0), ab[kk][0],
+              as[kk][0]);
+        split(*reinterpret_cast<const float*>(row + o1), ab[kk][1],
+              as[kk][1]);
+        split(*reinterpret_cast<const float*>(row + o2), ab[kk][2],
+              as[kk][2]);
+        split(*reinterpret_cast<const float*>(row + o3), ab[kk][3],
+              as[kk][3]);
+      }
+      mbar_wait(ready_full(r), (it / R) & 1);
+      // A is in registers and X split: the landing zone is free
+      mbar_arrive(land_empty(s));
+      const char* const slot = ready + r * T::SLOT;
+      const uint64_t bb = desc(smem_u32(slot), 16, 1024);
+      const uint64_t bs = desc(smem_u32(slot + T::HALF), 16, 1024);
+      fence_operand(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {  // + 32 bytes (2 units) a k-step
+        wgmma_tf32(acc, as[kk], bb + 2 * kk, kk > 0);
+        wgmma_tf32(acc, ab[kk], bs + 2 * kk, 1);
+        wgmma_tf32(acc, ab[kk], bb + 2 * kk, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(acc);
+      mbar_arrive(ready_empty(r));
+#pragma unroll
+      for (int i = 0; i < NA; ++i) c[i] += acc[i];
+    }
+
+    // the epilogue, once a tile of n_k stages: from registers, pairs of
+    // columns where C's rows are whole 8 bytes
+    const int col0 = BN * nt + 2 * t;
+#pragma unroll
+    for (int i = 0; i < NA; i += 2) {
+      const int row = kBM * mt + n0 + 4 * ((i >> 1) & 1);
+      const int col = col0 + 8 * (i >> 2);
+      if (row >= p.M || col >= p.N) continue;
+      float* const dst = p.c + static_cast<long long>(row) * p.N + col;
+      if (p.N % 2 == 0) {
+        *reinterpret_cast<float2*>(dst) = make_float2(c[i], c[i + 1]);
+      } else {
+        dst[0] = c[i];
+        if (col + 1 < p.N) dst[1] = c[i + 1];
+      }
+    }
+  }
+}
+
 // w [R, C] row-major into its TF32 halves big and small: [R, C] as w is, or
 // transposed to [C, R], each row of the halves `ld` elements apart (the
 // padding past a row's end left unwritten).  32 x 32 tiles, 256 threads.
@@ -379,6 +657,17 @@ int run(const Params& p, int grid, const CUtensorMap& ta,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int BN>
+int run_wgrad(const Params& p, int grid, const CUtensorMap& tdy,
+              const CUtensorMap& tx, cudaStream_t stream) {
+  auto kernel = wgrad_kernel<BN>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WTile<BN>::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kThreads, WTile<BN>::SMEM, stream>>>(p, tdy, tx);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int sm_count(int* sms) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -426,6 +715,41 @@ extern "C" int lstc_gemm(const void* a, int lda, const void* b_big,
   const auto s = static_cast<cudaStream_t>(stream);
   return bn == 64 ? run<64>(p, grid, ta, tbb, tbs, tc, s)
                   : run<128>(p, grid, ta, tbb, tbs, tc, s);
+}
+
+// dW[N, K] = dY[M, N]^T · X[M, K], dY and X row-major with row strides
+// lddy and ldx (multiples of 4, at least N and K), dW row-major and
+// contiguous.  Tiles of 128 x 128, or 128 x 64 where 128-column ones would
+// not give every SM one.
+extern "C" int lstc_gemm_wgrad(const void* dy, int lddy, const void* x,
+                               int ldx, void* dw, int M, int N, int K,
+                               void* stream) {
+  if (M < 1 || N < 1 || K < 1 || lddy < N || ldx < K || lddy % 4 || ldx % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  const int err = sm_count(&sms);
+  if (err != 0) return err;
+  const long long n_m = (N + kBM - 1) / kBM;
+  const int bn = n_m * ((K + 127) / 128) < sms ? 64 : 128;
+  const long long tiles = n_m * ((K + bn - 1) / bn);
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  Params p{};
+  p.c = static_cast<float*>(dw);
+  p.M = N;
+  p.N = K;
+  p.K = M;
+  p.n_m = static_cast<int>(n_m);
+  p.n_n = (K + bn - 1) / bn;
+  p.n_k = (M + kBK - 1) / kBK;
+  p.n_tiles = static_cast<int>(tiles);
+  const int grid = p.n_tiles < sms ? p.n_tiles : sms;
+  CUtensorMap tdy{}, tx{};
+  if (!encode_2d(&tdy, dy, N, M, lddy, kBK) ||
+      !encode_2d(&tx, x, K, M, ldx, kBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return bn == 64 ? run_wgrad<64>(p, grid, tdy, tx, s)
+                  : run_wgrad<128>(p, grid, tdy, tx, s);
 }
 
 // w [rows, cols] row-major into big and small, each [rows, cols], or

@@ -26,8 +26,12 @@ the product as one node of a graph, and its registered autograd gives
   transposed TF32 halves (both operands K-major: TF32 wgmma takes no
   transposed operand), by the operator ``lstc_vad::linear_input_grad`` so
   that the backward traces too;
-- the weight gradient dYᵀ·X by ``torch.matmul`` and the bias gradient by a
-  sum, as autograd of ``F.linear`` computes them;
+- the weight gradient dYᵀ·X through the kernel's weight-gradient entry
+  (``lstc_gemm_wgrad``: the sums over the rows, dY and x turned K-major in
+  shared memory), by the operator ``lstc_vad::linear_weight_grad``; dY is
+  padded once for both products where its width is ragged (d_inner 3027
+  out of ``w_1``);
+- the bias gradient by a sum, as autograd of ``F.linear`` computes it;
 - on CPU tensors, autograd of ``F.linear`` itself, rerun on the saved
   inputs.
 
@@ -37,14 +41,17 @@ an optimizer step.  Importing this module registers the operator; an
 exported program that holds it needs the import before
 ``torch.export.load``.
 
-``launches`` counts the forward launches of the kernel and
-``launches_dgrad`` the input-gradient launches.  A run resets them to 0 and
-reads them afterwards to show that its Linears went through the kernel.
-``pad_copies`` counts the copies of an operand into a padded row stride
-(``_tma_rows``: a forward's x into ``w_2``, a backward's dY out of ``w_1``
-at d_inner 3027) and ``pad_bytes`` what they move, the rows read and
-written once (2 · M · width · 4 bytes a copy); each copy is the span
-``linear.pad``.  ``reset_launches`` resets all four.
+``launches`` counts the forward launches of the kernel,
+``launches_dgrad`` the input-gradient launches and ``launches_wgrad`` the
+weight-gradient launches (one for each Linear whose weight takes a
+gradient: 6 a layer in a training step, the first layer's q, k and v
+included).  A run resets them to 0 and reads them afterwards to show that
+its Linears went through the kernel.  ``pad_copies`` counts the copies of
+an operand into a padded row stride (``_tma_view``: a forward's x into
+``w_2``, a backward's dY out of ``w_1`` and its x into ``w_2`` at d_inner
+3027) and ``pad_bytes`` what they move, the rows read and written once
+(2 · M · width · 4 bytes a copy); each copy is the span ``linear.pad``.
+``reset_launches`` resets all five.
 """
 
 from __future__ import annotations
@@ -61,10 +68,12 @@ from . import _build
 
 OP_NAME = "lstc_vad::linear"
 INPUT_GRAD_OP_NAME = "lstc_vad::linear_input_grad"
+WEIGHT_GRAD_OP_NAME = "lstc_vad::linear_weight_grad"
 ALIGN = 4  # f32 elements in 16 bytes: the row strides TMA takes
 
 launches = 0        # forward launches of the kernel
 launches_dgrad = 0  # input-gradient launches of the kernel
+launches_wgrad = 0  # weight-gradient launches of the kernel
 pad_copies = 0      # operands copied into a padded row stride
 pad_bytes = 0       # bytes those copies read and wrote
 
@@ -83,31 +92,30 @@ def check_kernel(dtype: torch.dtype, n: int, k: int):
 
 
 def reset_launches():
-    global launches, launches_dgrad, pad_copies, pad_bytes
-    launches = launches_dgrad = pad_copies = pad_bytes = 0
+    global launches, launches_dgrad, launches_wgrad, pad_copies, pad_bytes
+    launches = launches_dgrad = launches_wgrad = pad_copies = pad_bytes = 0
 
 
 @functools.cache
 def _lib():
     lib = _build.load("gemm")
-    gemm = lib.lstc_gemm
-    gemm.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2 + [
-        ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    gemm.restype = ctypes.c_int
-    split = lib.lstc_gemm_split
-    split.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    split.restype = ctypes.c_int
-    errors = lib.lstc_gemm_error_string
-    errors.argtypes = [ctypes.c_int]
-    errors.restype = ctypes.c_char_p
-    return gemm, split, errors
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    for fn, args in ((lib.lstc_gemm, [ptr, i, ptr, ptr, i, ptr, ptr, i, i, i,
+                                      ptr]),
+                     (lib.lstc_gemm_wgrad, [ptr, i, ptr, i, ptr, i, i, i,
+                                            ptr]),
+                     (lib.lstc_gemm_split, [ptr, ptr, ptr, i, i, i, i, ptr])):
+        fn.argtypes = args
+        fn.restype = i
+    lib.lstc_gemm_error_string.argtypes = [i]
+    lib.lstc_gemm_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _raise_failed(rc: int, what: str):
     raise RuntimeError(f"linear kernel launch failed: "
-                       f"{_lib()[2](rc).decode()} (cudaError {rc}, {what})")
+                       f"{_lib().lstc_gemm_error_string(rc).decode()} "
+                       f"(cudaError {rc}, {what})")
 
 
 def _padded(width: int) -> int:
@@ -124,23 +132,49 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def _tma_rows(t: torch.Tensor):
-    """``t``'s rows and their stride as TMA reads them: ``_rows(t)``, or,
-    where its width is not a multiple of 4, a copy whose rows are padded to
-    one (the padding unwritten: TMA reads the columns past the width as
-    zeros)."""
+def _tma_view(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or, where its width is not a multiple of 4, a copy whose rows
+    are padded to one, as the view of its first ``width`` columns (the
+    padding unwritten: TMA reads the columns past the width as zeros).
+    Decided by the shape alone, so that the backward traces through it."""
     global pad_copies, pad_bytes
     width = t.shape[-1]
     ld = _padded(width)
     if ld == width:
-        return _rows(t), ld
+        return t
     with annotate("linear.pad"):
-        rows = t.reshape(-1, width)
-        out = rows.new_empty(rows.shape[0], ld)
-        out[:, :width] = rows
+        out = t.new_empty(*t.shape[:-1], ld)
+        out[..., :width] = t
     pad_copies += 1
-    pad_bytes += 2 * rows.numel() * rows.element_size()
-    return out, ld
+    pad_bytes += 2 * t.numel() * t.element_size()
+    return out[..., :width]
+
+
+def _row_stride(rows: torch.Tensor) -> Optional[int]:
+    """The row stride by which TMA reads the matrix ``rows`` in place
+    (elements 16-byte aligned, rows a multiple of 4 elements apart), or
+    None where it cannot."""
+    m, width = rows.shape
+    ld = rows.stride(0) if m > 1 else _padded(width)
+    if (width > 1 and rows.stride(1) != 1) or ld < width or ld % ALIGN \
+            or rows.data_ptr() % 16:
+        return None
+    return ld
+
+
+def _tma_rows(t: torch.Tensor):
+    """``t``'s rows and their stride as TMA reads them: ``_rows(t)`` where
+    the width is a multiple of 4; else the rows in place where they already
+    lie a multiple of 4 elements apart on a 16-byte grid (a padded view
+    from ``_tma_view``), or ``_tma_view``'s padded copy."""
+    rows = t.reshape(-1, t.shape[-1])
+    if rows.shape[1] % ALIGN == 0:
+        return _rows(rows), rows.shape[1]
+    ld = _row_stride(rows)
+    if ld is None:
+        rows = _tma_view(rows)
+        ld = _row_stride(rows)
+    return rows, ld
 
 
 def _halves(weight: torch.Tensor, transpose: bool):
@@ -151,8 +185,9 @@ def _halves(weight: torch.Tensor, transpose: bool):
     rows, width = (k, n) if transpose else (n, k)
     ld = _padded(width)
     big, small = w.new_empty(rows, ld), w.new_empty(rows, ld)
-    rc = _lib()[1](w.data_ptr(), big.data_ptr(), small.data_ptr(), n, k, ld,
-                   int(transpose), _stream(w))
+    rc = _lib().lstc_gemm_split(w.data_ptr(), big.data_ptr(),
+                                small.data_ptr(), n, k, ld, int(transpose),
+                                _stream(w))
     if rc != 0:
         _raise_failed(rc, f"split of a [{n}, {k}] weight")
     return big, small, ld
@@ -181,11 +216,34 @@ def gemm(a: torch.Tensor, weight: torch.Tensor,
     with torch.cuda.device(a.device):
         a, lda = _tma_rows(a)
         big, small, ldb = _halves(weight, transpose)
-        rc = _lib()[0](a.data_ptr(), lda, big.data_ptr(), small.data_ptr(),
-                       ldb, None if bias is None else bias.data_ptr(),
-                       out.data_ptr(), m, cols, depth, _stream(a))
+        rc = _lib().lstc_gemm(a.data_ptr(), lda, big.data_ptr(),
+                              small.data_ptr(), ldb,
+                              None if bias is None else bias.data_ptr(),
+                              out.data_ptr(), m, cols, depth, _stream(a))
     if rc != 0:
         _raise_failed(rc, f"M={m} N={cols} K={depth}")
+    return out
+
+
+def gemm_wgrad(grad: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """dYᵀ·X for dY [..., N] and x [..., K] as matrices of their M rows:
+    [N, K], the sums over M, through csrc/gemm.cu on f32 CUDA tensors of any
+    width (a ragged one through ``_tma_rows``)."""
+    n, k = grad.shape[-1], x.shape[-1]
+    m = grad.numel() // n if n else 0
+    if (x.numel() // k if k else 0) != m:
+        raise ValueError(f"linear: dY {tuple(grad.shape)} and x "
+                         f"{tuple(x.shape)} differ in their rows")
+    out = grad.new_empty(n, k)
+    if m == 0:
+        return out.zero_()
+    with torch.cuda.device(grad.device):
+        g, ldg = _tma_rows(grad)
+        xs, ldx = _tma_rows(x)
+        rc = _lib().lstc_gemm_wgrad(g.data_ptr(), ldg, xs.data_ptr(), ldx,
+                                    out.data_ptr(), m, n, k, _stream(g))
+    if rc != 0:
+        _raise_failed(rc, f"weight gradient M={m} N={n} K={k}")
     return out
 
 
@@ -262,6 +320,28 @@ def _input_grad_fake(grad, weight):
     return grad.new_empty(*grad.shape[:-1], weight.shape[1])
 
 
+@torch.library.custom_op(WEIGHT_GRAD_OP_NAME, mutates_args=())
+def _weight_grad_op(grad: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """dYᵀ·X for dY [..., N] and x [..., K]: the weight's gradient [N, K].
+    On CUDA tensors the kernel (``lstc_gemm_wgrad``, the sums over the
+    rows), on the CPU ``torch.matmul``.  An operator of its own, as the
+    input gradient's is, so that the backward traces."""
+    global launches_wgrad
+    n, k = grad.shape[-1], x.shape[-1]
+    if grad.device.type != "cuda":
+        return torch.matmul(grad.reshape(-1, n).t(), x.reshape(-1, k))
+    check_kernel(grad.dtype, n, k)
+    check_kernel(x.dtype, n, k)
+    dw = gemm_wgrad(grad, x)
+    launches_wgrad += 1
+    return dw
+
+
+@_weight_grad_op.register_fake
+def _weight_grad_fake(grad, x):
+    return grad.new_empty(grad.shape[-1], x.shape[-1])
+
+
 def _setup_context(ctx, inputs, output):
     ctx.save_for_backward(*inputs)
 
@@ -278,15 +358,15 @@ def _backward(ctx, grad):
         wrt = [t for t, need in zip(inputs, wanted) if need]
         grads = iter(torch.autograd.grad(out, wrt, grad))
         return tuple(next(grads) if need else None for need in wanted)
-    n, k = weight.shape
-    g = grad.reshape(-1, n)
     dx = dw = db = None
-    if wanted[0]:
-        dx = _input_grad_op(grad, weight)
-    if wanted[1]:
-        dw = torch.matmul(g.t(), x.reshape(-1, k))
+    if wanted[0] or wanted[1]:
+        g = _tma_view(grad)  # a ragged dY padded once for both products
+        if wanted[0]:
+            dx = _input_grad_op(g, weight)
+        if wanted[1]:
+            dw = _weight_grad_op(g, x)
     if wanted[2]:
-        db = g.sum(0)
+        db = grad.reshape(-1, weight.shape[0]).sum(0)
     return dx, dw, db
 
 

@@ -16,6 +16,10 @@ tensor core's truncation within a stage is most of its error).  The bar
 holds at the encoder's output widths (N of 1024 and more): at N = 64
 cuBLAS runs another kernel whose error is 5-10 times smaller, and the
 kernel's, the same as at N = 2048, reads 1.0-2.3 times it at K = 3026-3072.
+The weight gradient sums over M, the rows, and is held to the same bar at
+depths of 1,001 rows and more; at M = 1 each element is one product, whose
+3xTF32 error no sum outweighs, so it is held to the split's own product
+error (WGRAD_PRODUCT_ERR).
 """
 
 import pytest
@@ -48,6 +52,22 @@ DGRAD = [(1280 * 49, 2048, 2048), (1280 * 49, 4096, 2048),
          (1280 * 49, 2048, 4096), (1258 * 81, 1024, 4096),
          (777, 132, 68), (64 * 112, 3027, 2048), (64 * 112, 2048, 3027),
          (300, 131, 67)]
+# (M, N, K): the weight gradient dYᵀ [N, M] · X [M, K] at a train step's
+# 1,280 parts of 49 tokens, at the STN's widths (d_inner 3027 out of w_1,
+# dY's rows padded, and into w_2, X's rows padded), at UBnormal's 2048 x
+# 1024 (M = 1,258 parts of 81 tokens, ragged: 128 tiles of 128 x 128, fewer
+# than the SMs, so 128 x 64 ones), and a ragged M of 1,001 rows
+WGRAD = [(1280 * 49, 2048, 2048), (1280 * 49, 4096, 2048),
+         (1280 * 49, 2048, 4096), (640 * 112, 3027, 2048),
+         (640 * 112, 2048, 3027), (1258 * 81, 2048, 1024),
+         (1001, 2048, 2048)]
+# a product's own error in the weight gradient's 3xTF32 (each operand's
+# big half rounded to TF32, its small half the exact rest, which the tensor
+# core truncates): under 2^-19 of |dY|·|x|, doubled here for the tensor
+# core's own sum of the three products; at a depth of one row that error is
+# the whole error, against cuBLAS's one rounding (2^-24), so M = 1 is held
+# to it
+WGRAD_PRODUCT_ERR = 2.0 ** -18
 
 
 @pytest.fixture
@@ -111,10 +131,53 @@ def test_input_gradient_against_float64(card, m, n, k):
     assert torch.equal(x.grad, got)
 
 
+def _weight_gradient(card, m, n, k):
+    """dYᵀ·X through the operator, twice (bit-equal: a fixed order of sums,
+    one launch a call), and as the operator's autograd computes the
+    weight's gradient (the same bits); returns dY, x and the product."""
+    g = torch.randn(m, n, device=card)
+    x = torch.randn(m, k, device=card)
+    with pytest.raises(ValueError):
+        cuda_linear.gemm_wgrad(g[:-1] if m > 1 else g[:0], x)
+    before = cuda_linear.launches_wgrad
+    with torch.no_grad():
+        got = torch.ops.lstc_vad.linear_weight_grad(g, x)
+        again = torch.ops.lstc_vad.linear_weight_grad(g, x)
+    assert cuda_linear.launches_wgrad == before + 2
+    assert got.shape == (n, k) and got.is_contiguous()
+    assert torch.equal(got, again)
+    w = torch.zeros(n, k, device=card, requires_grad=True)
+    before = cuda_linear.launches_wgrad
+    cuda_linear.linear(x, w).backward(g)
+    assert cuda_linear.launches_wgrad == before + 1
+    assert torch.equal(w.grad, got)
+    return g, x, got
+
+
+@pytest.mark.parametrize("m,n,k", WGRAD)
+def test_weight_gradient_against_float64(card, m, n, k):
+    """dYᵀ·X through the kernel's weight-gradient entry near float64: at
+    most cuBLAS's own error at these depths (M of 1,001 and more)."""
+    g, x, got = _weight_gradient(card, m, n, k)
+    with torch.no_grad():
+        want = g.double().t() @ x.double()
+        _hold_to_float64(got, torch.matmul(g.t(), x), want, m)
+
+
+def test_weight_gradient_of_one_row(card):
+    """M = 1: dW is the outer product dYᵀ·x, each element one product, so
+    its error is the split's alone (WGRAD_PRODUCT_ERR of |dY|·|x|)."""
+    g, x, got = _weight_gradient(card, 1, 2048, 2048)
+    want = g.double().t() @ x.double()
+    err = (got.double() - want).abs()
+    assert bool((err <= WGRAD_PRODUCT_ERR * want.abs()).all()), \
+        float((err / want.abs().clamp_min(1e-300)).max())
+
+
 def test_operator_gradients_against_float64(card):
     """x, weight and bias gradients of a 3-D input through the operator:
-    the input gradient from the kernel, the weight's from torch.matmul, the
-    bias's a sum; each near the float64 gradient."""
+    the input and the weight gradients from the kernel, the bias's a sum;
+    each near the float64 gradient."""
     x, w, b = _operands(card, 2 * 1500, 256, 512, 11)
     x = x.view(2, 1500, 512).requires_grad_()
     w.requires_grad_()
@@ -159,17 +222,22 @@ def test_ragged_widths_and_refusals(card):
         _hold_to_float64(got, F.linear(xs, ws), want, 2048)
 
 
-@pytest.mark.parametrize("case", ["linear", "linear_bias", "input_grad"])
+@pytest.mark.parametrize("case", ["linear", "linear_bias", "input_grad",
+                                  "weight_grad"])
 def test_ops_pass_opcheck_on_the_card(card, case):
-    """Both operators on CUDA tensors: schema, fake implementation,
+    """The three operators on CUDA tensors: schema, fake implementation,
     autograd registration (the backward traced through
-    lstc_vad::linear_input_grad), tracing with dynamic shapes."""
+    lstc_vad::linear_input_grad and lstc_vad::linear_weight_grad), tracing
+    with dynamic shapes."""
     x, w, b = _operands(card, 3 * 49, 256, 128, 21)
     x = x.view(3, 49, 128).requires_grad_()
     w.requires_grad_()
     if case == "input_grad":
         op, args = torch.ops.lstc_vad.linear_input_grad.default, (
             torch.randn(3, 49, 256, device=card), w.detach())
+    elif case == "weight_grad":
+        op, args = torch.ops.lstc_vad.linear_weight_grad.default, (
+            torch.randn(3, 49, 256, device=card), x.detach())
     else:
         op = torch.ops.lstc_vad.linear.default
         args = (x, w, b if case == "linear_bias" else None)
@@ -183,7 +251,8 @@ def test_every_encoder_linear_of_the_cells_takes_the_kernel(card, name):
     d_inner 3027), at full width: every Linear of every layer on the kernel
     (6 a layer); then
     one train step's backward: every input gradient through the kernel
-    (the first layer's q, k, v take none: the features need no gradient)."""
+    (the first layer's q, k, v take none: the features need no gradient)
+    and every weight gradient, those of the first layer's q, k, v too."""
     from lstc_vad_tpu_torch.config import preset
     from lstc_vad_tpu_torch.models import build
 
@@ -201,6 +270,7 @@ def test_every_encoder_linear_of_the_cells_takes_the_kernel(card, name):
     head(encoder(x)[:, 0]).sum().backward()
     assert cuda_linear.launches == 6 * n
     assert cuda_linear.launches_dgrad == 6 * n - 3
+    assert cuda_linear.launches_wgrad == 6 * n
 
 
 def test_a_model_axis_of_one_rank_is_the_unsharded_step(card):

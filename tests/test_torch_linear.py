@@ -139,10 +139,12 @@ def test_fake_gives_the_shape_on_meta():
         cuda_linear.linear(x, torch.empty(40, 23, device="meta"))
 
 
-@pytest.mark.parametrize("case", ["linear", "linear_bias", "input_grad"])
+@pytest.mark.parametrize("case", ["linear", "linear_bias", "input_grad",
+                                  "weight_grad"])
 def test_operators_pass_opcheck_on_the_cpu(case):
-    """lstc_vad::linear (its autograd included) and the input gradient's
-    lstc_vad::linear_input_grad: schema, fake implementation, tracing with
+    """lstc_vad::linear (its autograd included), the input gradient's
+    lstc_vad::linear_input_grad and the weight gradient's
+    lstc_vad::linear_weight_grad: schema, fake implementation, tracing with
     dynamic shapes."""
     x = _x((3, 17, 24), "contiguous").requires_grad_()
     w, b = _weights(40, 24, case == "linear_bias")
@@ -152,10 +154,73 @@ def test_operators_pass_opcheck_on_the_cpu(case):
     if case == "input_grad":
         op, args = torch.ops.lstc_vad.linear_input_grad.default, (
             _x((3, 17, 40), "contiguous"), w.detach())
+    elif case == "weight_grad":
+        op, args = torch.ops.lstc_vad.linear_weight_grad.default, (
+            _x((3, 17, 40), "contiguous"), x.detach())
     else:
         op, args = torch.ops.lstc_vad.linear.default, (x, w, b)
     result = torch.library.opcheck(op, args)
     assert set(result.values()) == {"SUCCESS"}, result
+
+
+def test_weight_grad_fake_gives_n_by_k_on_meta():
+    """The weight gradient's fake: [N, K] for dY [..., N] and x [..., K],
+    whatever the leading dimensions."""
+    op = torch.ops.lstc_vad.linear_weight_grad
+    for lead in ((3, 49), (147,), ()):
+        g = torch.empty(*lead, 40, device="meta")
+        x = torch.empty(*lead, 24, device="meta")
+        dw = op(g, x)
+        assert dw.device.type == "meta" and dw.shape == (40, 24)
+        assert dw.dtype == torch.float32
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_cpu_weight_grad_op_is_the_matmul(layout):
+    """On the CPU the weight gradient's operator is dYᵀ·X by torch.matmul
+    over the rows, bit for bit, at every layout of x."""
+    shape, how = LAYOUTS[layout]
+    x = _x(shape, how)
+    g = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        shape[:-1] + (40,)).astype(np.float32))
+    got = torch.ops.lstc_vad.linear_weight_grad(g, x)
+    want = torch.matmul(g.reshape(-1, 40).t(), x.reshape(-1, shape[-1]))
+    assert torch.equal(got, want)
+
+
+def test_tma_rows_reads_padded_views_in_place():
+    """``_tma_view`` pads a ragged width once (counted, 2 · M · width · 4
+    bytes), and ``_tma_rows`` then reads that padded view in place, as it
+    reads any ragged matrix whose rows lie a multiple of 4 elements apart
+    on a 16-byte grid; an aligned width it takes as ``_rows`` does,
+    contiguous (a copy of any other layout, uncounted)."""
+    cuda_linear.reset_launches()
+    g = torch.randn(3, 5, 7)
+    padded = cuda_linear._tma_view(g)
+    assert cuda_linear.pad_copies == 1
+    assert cuda_linear.pad_bytes == 2 * g.numel() * 4
+    assert padded.shape == g.shape and torch.equal(padded, g)
+    rows, ld = cuda_linear._tma_rows(padded)
+    assert ld == 8 and rows.data_ptr() == padded.data_ptr()
+    assert torch.equal(rows, g.reshape(-1, 7))
+    assert cuda_linear.pad_copies == 1  # read in place, no second copy
+    rows, ld = cuda_linear._tma_rows(g)  # ragged: padded
+    assert ld == 8 and cuda_linear.pad_copies == 2
+    buf = torch.randn(15, 12)
+    sliced = buf[:, 4:11]  # ragged rows 12 apart, 16 bytes in
+    rows, ld = cuda_linear._tma_rows(sliced)
+    assert ld == 12 and rows.data_ptr() == sliced.data_ptr()
+    assert torch.equal(rows, sliced)
+    sliced = buf[:, 4:8]  # aligned rows 12 apart: a contiguous copy
+    rows, ld = cuda_linear._tma_rows(sliced)
+    assert ld == 4 and rows.is_contiguous() and torch.equal(rows, sliced)
+    transposed = torch.randn(8, 15).t()
+    rows, ld = cuda_linear._tma_rows(transposed)
+    assert ld == 8 and rows.is_contiguous()
+    assert torch.equal(rows, transposed)
+    assert cuda_linear.pad_copies == 2
+    cuda_linear.reset_launches()
+    assert cuda_linear.pad_copies == cuda_linear.pad_bytes == 0
 
 
 def _counting(monkeypatch):
@@ -276,11 +341,17 @@ def test_a_model_axis_of_one_rank_keeps_each_modules_product(monkeypatch):
 
 
 def test_cuda_counters_are_plain_integers():
+    cuda_linear.launches_wgrad = 5
     cuda_linear.reset_launches()
     assert cuda_linear.launches == cuda_linear.launches_dgrad == 0
+    assert cuda_linear.launches_wgrad == 0
     assert type(cuda_linear.launches) is int
     assert type(cuda_linear.launches_dgrad) is int
+    assert type(cuda_linear.launches_wgrad) is int
     x = torch.ones(2, 4, requires_grad=True)
-    cuda_linear.linear(x, torch.ones(3, 4)).sum().backward()
+    w = torch.ones(3, 4, requires_grad=True)
+    cuda_linear.linear(x, w).sum().backward()
+    torch.ops.lstc_vad.linear_weight_grad(torch.ones(2, 3), x.detach())
     # CPU calls launch nothing
     assert cuda_linear.launches == cuda_linear.launches_dgrad == 0
+    assert cuda_linear.launches_wgrad == 0

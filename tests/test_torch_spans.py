@@ -188,8 +188,9 @@ def test_operator_spans_are_known():
                                           (32, False), (4096, False)])
 def test_padded_copy_counts_and_span(tmp_path, width, padded):
     """``_tma_rows`` copies rows off the 16-byte grid into a padded row
-    stride, counts the copy and the bytes it reads and writes (2 · M ·
-    width · 4) and records it as ``linear.pad``; aligned rows it leaves
+    stride (returning the view of their first ``width`` columns, rows
+    ``ld`` apart), counts the copy and the bytes it reads and writes (2 · M
+    · width · 4) and records it as ``linear.pad``; aligned rows it leaves
     alone.  (On CPU tensors the operator itself never calls it.)"""
     from lstc_vad_tpu_torch.ops import cuda_linear
 
@@ -197,9 +198,9 @@ def test_padded_copy_counts_and_span(tmp_path, width, padded):
     cuda_linear.reset_launches()
     with trace(str(tmp_path)):
         rows, ld = cuda_linear._tma_rows(x)
-    assert ld == -(-width // 4) * 4 and rows.shape == (15, ld if padded
-                                                       else width)
-    assert torch.equal(rows[:, :width], x.reshape(15, width))
+    assert ld == -(-width // 4) * 4 and rows.shape == (15, width)
+    assert rows.stride() == (ld, 1)
+    assert torch.equal(rows, x.reshape(15, width))
     assert cuda_linear.pad_copies == int(padded)
     assert cuda_linear.pad_bytes == (2 * 15 * width * 4 if padded else 0)
     assert len(_named(_spans(str(tmp_path)), "linear.pad")) == int(padded)
@@ -346,11 +347,13 @@ def test_card_dispatch_spans(card, tmp_path):
 @pytest.mark.parametrize("name,copies", [("sht_stn", 3), ("sht_ltn", 0)])
 def test_card_operator_spans_and_pad_counters(card, tmp_path, name, copies):
     """One train-mode forward and backward at full width: at d_inner 3027
-    (``sht_stn``) 3 padded copies a forward (x into ``w_2``) and 3 a
-    backward (dY out of ``w_1``), each [M, 3027] read and written once,
-    the backward's ``linear.pad`` spans on autograd's thread; at d_inner
-    4096 (``sht_ltn``) none.  Under attention dropout every layer's
-    attention is one ``attention.plain`` span on the forward's thread."""
+    (``sht_stn``) 3 padded copies a forward (x into ``w_2``) and 6 a
+    backward (dY out of ``w_1``, once for its input and weight gradients,
+    and x into ``w_2`` for its weight gradient), each [M, 3027] read and
+    written once, the backward's ``linear.pad`` spans on autograd's thread;
+    at d_inner 4096 (``sht_ltn``) none.  Under attention dropout every
+    layer's attention is one ``attention.plain`` span on the forward's
+    thread."""
     from lstc_vad_tpu_torch.ops import cuda_linear
 
     cfg = preset(name)
@@ -368,11 +371,11 @@ def test_card_operator_spans_and_pad_counters(card, tmp_path, name, copies):
         assert cuda_linear.pad_bytes == copies * 2 * m * width * 4
         out.sum().backward()
         torch.cuda.synchronize(card)
-    assert cuda_linear.pad_copies == 2 * copies
-    assert cuda_linear.pad_bytes == 2 * copies * 2 * m * width * 4
+    assert cuda_linear.pad_copies == 3 * copies
+    assert cuda_linear.pad_bytes == 3 * copies * 2 * m * width * 4
     spans = _spans(str(tmp_path))
     pads, attn = _named(spans, "linear.pad"), _named(spans, "attention.plain")
-    assert len(pads) == 2 * copies
+    assert len(pads) == 3 * copies
     assert len(attn) == cfg.encoder.n_layers
     forward = {s["tid"] for s in attn}
     assert len(forward) == 1
